@@ -1,0 +1,80 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+Marked ``cuda``: they skip on a host without a CUDA device. This file
+imports neither JAX nor the JAX package, so it runs on the machine with
+the card:
+
+  PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
+
+``tests/test_torch_kernels.py`` shares its cases and holds the plain
+versions against the JAX kernels on the CPU.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.paged_attention import (_HEAD_DIMS, paged_attention,
+                                                 paged_prefill_attention)
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _prefill_case(seed, B, Q, Hq, Hkv, D, page, pps):
+    """Ragged starts/lengths incl. a zero-history row, a non-page-aligned
+    start and (when B allows) a fully-padded q_lens == 0 row."""
+    rng = np.random.default_rng(seed)
+    P = B * pps + 3
+    q = rng.standard_normal((B, Q, Hq, D)).astype(np.float32)
+    kp = rng.standard_normal((P, page, Hkv, D)).astype(np.float32)
+    vp = rng.standard_normal((P, page, Hkv, D)).astype(np.float32)
+    bt = rng.permutation(P)[:B * pps].reshape(B, pps).astype(np.int32)
+    qs = np.array([(i * 7) % (page * pps - Q) for i in range(B)], np.int32)
+    ql = np.array([0 if (B > 2 and i == B - 1) else 1 + (i * 3) % Q
+                   for i in range(B)], np.int32)
+    return q, kp, vp, bt, qs, ql
+
+
+def _valid_close(got, want, ql, tol):
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    for b in range(got.shape[0]):
+        n = int(ql[b])
+        np.testing.assert_allclose(got[b, :n], want[b, :n], rtol=tol,
+                                   atol=tol)
+
+
+PREFILL_SHAPES = [
+    (3, 4, 4, 2, 16, 8, 4),      # GQA, mixed q_lens
+    (2, 8, 8, 2, 32, 8, 5),      # chunk spans pages
+    (1, 7, 4, 1, 16, 4, 6),      # MQA, odd Q
+    (4, 5, 6, 3, 16, 5, 4),      # non-pow2 page, padded row
+    (2, 1, 4, 2, 16, 8, 4),      # decode-only round (Q=1)
+    (3, 6, 12, 2, 128, 16, 3),   # qwen2-1.5b heads (G=6, D=128)
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernels_match_plain(dtype):
+    """On the card: each kernel against its plain version, and the Q = 1
+    fused kernel bitwise equal to the decode kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the H100)")
+    dev = torch.device("cuda")
+    for shape in PREFILL_SHAPES:
+        if shape[4] not in _HEAD_DIMS:
+            continue                      # head dims the kernel takes
+        q, kp, vp, bt, qs, ql = (torch.from_numpy(a).to(dev) for a in
+                                 _prefill_case(0, *shape))
+        q, kp, vp = (x.to(TDT[dtype]) for x in (q, kp, vp))
+        got = paged_prefill_attention(q, kp, vp, bt, qs, ql)
+        want = tref.paged_prefill_attention_ref(q, kp, vp, bt, qs, ql)
+        _valid_close(got.float().cpu(), want.float().cpu(), ql.cpu(),
+                     TOL[dtype])
+        one = torch.ones_like(ql)
+        f = paged_prefill_attention(q[:, :1].contiguous(), kp, vp, bt, qs,
+                                    one)
+        d = paged_attention(q[:, 0].contiguous(), kp, vp, bt, qs + 1)
+        assert torch.equal(f[:, 0], d)
