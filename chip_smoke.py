@@ -3,9 +3,19 @@
   python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
-each against its plain PyTorch version at full-width qwen2-1.5b shapes,
-then drives the port's main path — the paged multi-turn engine at full
-width (28 layers, bf16, random weights from a seed) — on both planes,
+each against its plain PyTorch version at full-width shapes, then
+drives the port's main paths at full width with random weights from a
+seed, each with the kernels' launch counts zeroed just before it and
+read just after:
+
+- the paged multi-turn engine (qwen2-1.5b, 28 layers, bf16) on both
+  planes: (a) the scripted demo, (b) a mixed prefill/decode trace;
+- (a') the scripted demo on the per-token plane, whose turns 0 take the
+  dense prefill graft (``flash_prefill``);
+- (c) the single-turn ring-cache engine on qwen2-1.5b (``flash_prefill``)
+  and (d) on mamba2-1.3b (48 layers, ``ssd_scan``), each against a B = 1
+  greedy reference and a full-width prefill through the plain versions;
+
 and checks what comes out. Every phase is checked; any failure exits
 non-zero. The last line of standard output is
 
@@ -32,9 +42,16 @@ HBM_BYTES_S = 3.35e12              # H100 SXM device memory rate
 PEAK_OPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 KERNEL_SRC = "src/repro_torch/kernels/csrc/paged_attention.cu"
+SOURCES = {"paged_prefill_attention": KERNEL_SRC,
+           "paged_attention": KERNEL_SRC,
+           "flash_prefill": "src/repro_torch/kernels/csrc/flash_prefill.cu",
+           "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu"}
 REPLACES = {"paged_prefill_attention":
             "src/repro/kernels/paged_attention.py:283",
-            "paged_attention": "src/repro/kernels/paged_attention.py:133"}
+            "paged_attention": "src/repro/kernels/paged_attention.py:133",
+            "flash_prefill": "src/repro/kernels/flash_prefill.py:80",
+            "ssd_scan": "src/repro/kernels/ssd_scan.py:67"}
+SSD_TOL = {d: 4 * t for d, t in TOL.items()}   # the recurrence accumulates
 
 
 class SmokeFailure(RuntimeError):
@@ -132,6 +149,50 @@ def sdpa_yardstick(q, k_pages, v_pages, bt, starts, lens, decode: bool):
     mask = mask[:, None]
     F = torch.nn.functional
     return lambda: F.scaled_dot_product_attention(qt, k, v, attn_mask=mask)
+
+
+def flash_bound(q, k, window, q_offset):
+    """Least time (ms) for one ``flash_prefill`` call: q, k, v read and
+    out written once over the memory rate, or the multiply-adds of QK^T
+    and PV over the (query, key) pairs the masks leave, over the peak
+    rate of the input type, whichever is larger."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    qpos = np.arange(Sq) + q_offset
+    hi = np.minimum(qpos + 1, Skv)                  # causal: keys < hi
+    lo = np.zeros_like(qpos) if window is None else \
+        np.maximum(qpos - window + 1, 0)
+    pairs = int(np.maximum(hi - lo, 0).sum())
+    nbytes = q.element_size() * (2 * B * Hq * Sq * D + 2 * B * Hkv * Skv * D)
+    ops = 4 * B * Hq * pairs * D
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = ops / PEAK_OPS_S[q.dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ssd_bound(X, B_mat, cs):
+    """Least time (ms) for one ``ssd_scan`` call: X, dA, B, C read and Y
+    and the f32 state written once over the memory rate, or the
+    operations of the chunked scan over the f32 rate of the CUDA cores
+    (TF32 is off): per chunk and head, C B^T and its product with X over
+    the cs (cs + 1) / 2 pairs j <= i, and the carried state's two
+    [cs, N] x [N, P] products."""
+    b, l, h, p = X.shape
+    n = B_mat.shape[-1]
+    pairs = cs * (cs + 1) // 2
+    ops = b * h * (l // cs) * (2 * pairs * (n + p) + 4 * cs * n * p)
+    nbytes = X.element_size() * b * l * h * (2 * p + 1 + 2 * n) \
+        + 4 * b * h * p * n
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = ops / PEAK_OPS_S[torch.float32] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def allclose_err(got, want, tol):
+    """(max abs error, within ``tol`` as rtol and atol)."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    return err.max().item(), bool((err <= tol + tol * want.abs()).all())
 
 
 # ======================================================================
@@ -233,7 +294,8 @@ def kernels_phase(dev) -> dict:
             lib_ms = timer(lib)
             bound_ms, bound_by = attention_bound(args[0], kp, args[4],
                                                  lens, dec)
-            rows[kname] = dict(name=kname, route="cuda", source=KERNEL_SRC,
+            rows[kname] = dict(name=kname, route="cuda",
+                               source=SOURCES[kname],
                                replaces=REPLACES[kname], launches=0,
                                max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                bound_ms=bound_ms, bound_by=bound_by,
@@ -241,6 +303,94 @@ def kernels_phase(dev) -> dict:
             log(f"[kernels] {kname} bf16 B={B} Q={1 if dec else Q} "
                 f"ctx={ctx}: {ms:.4f} ms (plain {plain_ms:.4f} ms, sdpa "
                 f"{lib_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by})")
+    return rows
+
+
+def prefill_kernels_phase(dev) -> dict:
+    """(k) ``flash_prefill`` at qwen2-1.5b heads and ``ssd_scan`` at
+    mamba2-1.3b heads against their plain versions in both types; each
+    timed at its main-path shape and type beside its plain version, its
+    bound and (for attention) SDPA."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models.ssm import ssd_chunked
+    F = torch.nn.functional
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    timer = Timer(dev)
+    rows = {}
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
+    flash_cases = [  # B, Hq, Hkv, Sq, Skv, D, window, q_offset
+        (1, 12, 2, 512, 512, 128, None, 0),
+        (1, 12, 2, 2048, 2048, 128, None, 0),
+        (1, 12, 2, 300, 300, 128, 128, 0),       # sliding window
+        (1, 12, 2, 200, 456, 128, None, 256),    # chunk after a prefix
+    ]
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        for B, Hq, Hkv, Sq, Skv, D, window, q_offset in flash_cases:
+            q = randn(B, Hq, Sq, D).to(dtype)
+            k = randn(B, Hkv, Skv, D).to(dtype)
+            v = randn(B, Hkv, Skv, D).to(dtype)
+            kw = dict(window=window, q_offset=q_offset)
+            got = flash_prefill(q, k, v, **kw)
+            want = ref.flash_prefill_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err, ok = allclose_err(got, want, TOL[dtype])
+            log(f"[kernels] {name}: flash_prefill Sq={Sq} Skv={Skv} "
+                f"window={window} q_offset={q_offset}: max_abs_err {err} "
+                f"(tol {TOL[dtype]})")
+            check(torch.isfinite(got).all().item() and ok,
+                  f"flash_prefill {name} Sq={Sq}: err {err}")
+            if dtype == torch.bfloat16 and Sq == 2048:
+                # the engine's type at its longest prompt
+                ms = timer(lambda: flash_prefill(q, k, v))
+                plain_ms = timer(lambda: ref.flash_prefill_ref(q, k, v))
+                lib_ms = timer(lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True))
+                bound_ms, bound_by = flash_bound(q, k, None, 0)
+                rows["flash_prefill"] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+    ssd_cases = [(1, 2048, 64, 64, 128, 256),   # b, l, h, p, n, chunk
+                 (1, 192, 64, 64, 128, 64)]     # a short prompt's chunk
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        for b, l, h, p, n, cs in ssd_cases:
+            X = randn(b, l, h, p, scale=0.5).to(dtype)
+            dA = (-randn(b, l, h).abs() * 0.3).to(dtype)
+            Bm = randn(b, l, h, n, scale=0.5).to(dtype)
+            Cm = randn(b, l, h, n, scale=0.5).to(dtype)
+            Y, st = ssd_scan(X, dA, Bm, Cm, chunk=cs)
+            f32 = [t.float() for t in (X, dA, Bm, Cm)]
+            Yw, stw = ssd_chunked(*f32, cs)
+            torch.cuda.synchronize()
+            e_y, ok_y = allclose_err(Y, Yw, SSD_TOL[dtype])
+            e_s, ok_s = allclose_err(st, stw, SSD_TOL[dtype])
+            log(f"[kernels] {name}: ssd_scan L={l} chunk={cs}: Y "
+                f"max_abs_err {e_y}, state max_abs_err {e_s} (tol "
+                f"{SSD_TOL[dtype]} abs and rel)")
+            check(torch.isfinite(Y).all().item() and ok_y and ok_s,
+                  f"ssd_scan {name} L={l}: err {e_y} / {e_s}")
+            if dtype == torch.float32 and cs == 256:
+                # the model's type (the scan's inputs are f32) at 2048
+                ms = timer(lambda: ssd_scan(X, dA, Bm, Cm, chunk=cs))
+                plain_ms = timer(lambda: ssd_chunked(X, dA, Bm, Cm, cs))
+                bound_ms, bound_by = ssd_bound(X, Bm, cs)
+                rows["ssd_scan"] = dict(
+                    max_abs_err=max(e_y, e_s), ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    for kname, r in rows.items():
+        r.update(name=kname, route="cuda", source=SOURCES[kname],
+                 replaces=REPLACES[kname], launches=0)
+        lib = "none" if r["library_ms"] is None \
+            else f"{r['library_ms']:.4f} ms"
+        log(f"[kernels] {kname}: {r['ms']:.4f} ms (plain "
+            f"{r['plain_ms']:.4f} ms, library {lib}, bound "
+            f"{r['bound_ms']:.5f} ms by {r['bound_by']})")
     return rows
 
 
@@ -280,8 +430,7 @@ def mixed_trace(eng, rng, n_sessions: int, max_new: int, chunk: int):
 
 def engine_phase(dev) -> dict:
     from repro_torch.launch.serve import build_demo
-    from repro_torch.serving.paged_engine import (PagedRealtimeEngine,
-                                                  run_multiturn_demo)
+    from repro_torch.serving.paged_engine import PagedRealtimeEngine
     t0 = time.perf_counter()
     cfg, params, kw = build_demo("qwen2-1.5b", dev, SEED)
     torch.cuda.synchronize()
@@ -292,19 +441,7 @@ def engine_phase(dev) -> dict:
         f"bf16 random weights (seed {SEED}) in "
         f"{time.perf_counter() - t0:.1f} s")
     # (a) the scripted multi-turn demo on the fused plane
-    t0 = time.perf_counter()
-    out = run_multiturn_demo(cfg, params, log=lambda *_a: None, **kw)
-    secs = time.perf_counter() - t0
-    pre = out["preload"]
-    gen = {s: [t["generated"] for t in ts] for s, ts in out["turns"].items()}
-    log(f"[engine] (a) demo in {secs:.1f} s: evictions "
-        f"{out['offload_events']}, preload {pre}, generated {gen}")
-    check(out["offload_events"] > 0, "demo evicted nothing")
-    check(pre["sync_fallbacks"] >= 1, "demo took no sync reload")
-    check(pre["admitted"] >= 1 and pre["hits"] >= 1,
-          "demo had no preload admitted")
-    check(gen == {"alice": [20, 4, 12], "bob": [52, 12]},
-          f"demo turns generated {gen}")
+    histories = run_demo(cfg, params, kw, fused=True, tag="(a)")
     # (b) submit_turn/run_round on both planes
     planes = {}
     for fused in (True, False):
@@ -330,7 +467,141 @@ def engine_phase(dev) -> dict:
     log(f"[engine] (b) sessions with identical tokens on both planes: "
         f"{same}/8 (bf16: matmuls of other shapes round differently)")
     profile_rounds(cfg, params, dev)
-    return dict(params=params, cfg=cfg, planes=planes)
+    return dict(params=params, cfg=cfg, planes=planes, kw=kw,
+                histories=histories)
+
+
+def run_demo(cfg, params, kw, *, fused: bool, tag: str) -> dict:
+    """The scripted multi-turn demo on one plane, checked against the
+    JAX demo's counts (5 evictions, 1 sync reload, 1 preload admitted
+    and hit). Returns its engine's token histories."""
+    from repro_torch.serving import paged_engine as pe
+    made = []
+
+    class Captured(pe.PagedRealtimeEngine):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+    t0 = time.perf_counter()
+    orig, pe.PagedRealtimeEngine = pe.PagedRealtimeEngine, Captured
+    try:
+        out = pe.run_multiturn_demo(cfg, params, fused_step=fused,
+                                    log=lambda *_a: None, **kw)
+    finally:
+        pe.PagedRealtimeEngine = orig
+    secs = time.perf_counter() - t0
+    pre = out["preload"]
+    gen = {s: [t["generated"] for t in ts] for s, ts in out["turns"].items()}
+    log(f"[engine] {tag} demo ({'fused' if fused else 'per-token'} plane) "
+        f"in {secs:.1f} s: evictions {out['offload_events']}, preload "
+        f"{pre}, generated {gen}")
+    check(out["offload_events"] == 5, "demo did not evict 5 times")
+    check(pre["sync_fallbacks"] == 1, "demo took no sync reload")
+    check(pre["admitted"] == 1 and pre["hits"] == 1,
+          "demo had no preload admitted and hit")
+    n = kw["token_scale"]                 # alice's turn 2 is barged at 4
+    check(gen == {"alice": [10 * n, 4, 6 * n], "bob": [26 * n, 6 * n]},
+          f"demo turns generated {gen}")
+    return {sid: x.history for sid, x in made[0].sessions.items()}
+
+
+def tokenwise_demo_phase(cfg, params, kw, fused_histories) -> None:
+    """(a') the demo on the per-token plane: turns 0 take the dense
+    prefill graft; its token histories must be the fused demo's."""
+    hist = run_demo(cfg, params, kw, fused=False, tag="(a')")
+    same = sum(hist[s] == fused_histories[s] for s in hist)
+    log(f"[engine] (a') sessions with the fused demo's histories: "
+        f"{same}/{len(hist)}")
+    check(hist == fused_histories, "per-token demo histories differ from "
+          "the fused demo's")
+
+
+def greedy(cfg, params, prompt, n, capacity, dev):
+    """B = 1 greedy reference through the model's own prefill and
+    decode_step."""
+    from repro_torch.models.model import decode_step, init_cache, prefill
+    cache = init_cache(cfg, 1, capacity, dev)
+    logits, cache = prefill(cfg, params, torch.as_tensor(
+        prompt, device=dev)[None, :], cache)
+    toks = [int(torch.argmax(logits[0]))]
+    for _ in range(n - 1):
+        lg, cache = decode_step(cfg, params,
+                                torch.tensor([toks[-1]], device=dev), cache)
+        toks.append(int(torch.argmax(lg[0])))
+    return toks
+
+
+def single_turn_serve(cfg, params, dev, prompts, n_new, capacity) -> dict:
+    """The main path of (c)/(d): every prompt admitted into its own slot
+    of ``RealtimeLLMEngine`` (one B = 1 prefill each), then decoded
+    together to completion."""
+    from repro_torch.serving.engine import RealtimeLLMEngine
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = RealtimeLLMEngine(cfg, params, slots=len(prompts),
+                            capacity=capacity, device=dev)
+    for sid, p in prompts.items():
+        eng.add_session(sid, p, max_new_tokens=n_new)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    rounds = 0
+    while eng.active():
+        eng.step()
+        rounds += 1
+        check(rounds < 10 * n_new, "single-turn engine did not finish")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    out = {s.session_id: s.tokens for s in eng.slot_state.values()}
+    log(f"[single] {cfg.name}: {len(prompts)} prompts of "
+        f"{[len(p) for p in prompts.values()]} tokens admitted in "
+        f"{t_prefill:.2f} s; {rounds} decode rounds; {secs:.2f} s in all")
+    return out
+
+
+def single_turn_check(cfg, params, dev, prompts, out, n_new, capacity):
+    """Each session's tokens against the B = 1 greedy reference, and a
+    full-width prefill of the longest prompt through the kernels against
+    one through their plain versions."""
+    from repro_torch.models.model import init_cache, prefill
+    same = {sid: out[sid] == greedy(cfg, params, p, n_new, capacity, dev)
+            for sid, p in prompts.items()}
+    log(f"[single] {cfg.name}: sessions with the greedy reference's "
+        f"tokens: {sum(same.values())}/{len(same)}; "
+        f"first tokens {[out[s][:6] for s in sorted(out)]}")
+    check(all(same.values()), f"{cfg.name}: engine tokens differ from the "
+          f"greedy reference for {[s for s, ok in same.items() if not ok]}")
+    for s in out:
+        check(len(out[s]) == n_new, f"{s}: {len(out[s])} tokens")
+    longest = max(prompts.values(), key=len)
+    tok = torch.as_tensor(longest, device=dev)[None, :]
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
+        c = cfg.replace(dtype=name, param_dtype=name)
+        p = cast_params(params, dtype)
+        got = prefill(c, p, tok, init_cache(c, 1, capacity, dev))[0]
+        want = prefill(c, p, tok, init_cache(c, 1, capacity, dev),
+                       plain=True)[0]
+        torch.cuda.synchronize()
+        check(torch.isfinite(got).all().item(),
+              f"{cfg.name}: prefill logits non-finite")
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        # the kernels sum in f32 in another order than the plain
+        # versions. f32: ~1e-6 relative per layer output, carried
+        # through up to 48 layers: 1e-4 of the logits' scale. bf16: each
+        # layer's output is rounded to bf16, so those differences flip
+        # ulps (~4e-3 relative) that carry through the depth: 3e-2.
+        tol = (1e-4 if dtype == torch.float32 else 3e-2) * scale
+        agree = bool(got.argmax() == want.argmax())
+        log(f"[single] {cfg.name} {name}: {len(longest)}-token prefill, "
+            f"kernels vs plain: logits max_abs_err {err:.3e} (scale "
+            f"{scale:.2f}, tol {tol:.3e}), argmax equal {agree}")
+        check(err <= tol, f"{cfg.name} {name} prefill: {err} > {tol}")
+
+
+def prompts_for(cfg, rng, lens) -> dict:
+    return {f"s{i}": rng.integers(0, cfg.vocab_size, size=int(n))
+            for i, n in enumerate(lens)}
 
 
 def profile_rounds(cfg, params, dev) -> None:
@@ -381,7 +652,7 @@ def step_phase(dev, cfg, params) -> None:
     for dtype in (torch.bfloat16, torch.float32):
         c = cfg.replace(dtype=str(dtype).replace("torch.", ""),
                         param_dtype=str(dtype).replace("torch.", ""))
-        p = _tree(params, lambda t: t.to(dtype))   # no copy in bf16
+        p = cast_params(params, dtype)             # no copy in bf16
         P = B * pps
         shape = (c.num_layers, P + 1, page, c.num_kv_heads,
                  c.resolved_head_dim)
@@ -443,12 +714,43 @@ def step_phase(dev, cfg, params) -> None:
             check(err <= tol, f"{what} step {dtype}: {err} > {tol}")
 
 
-def _tree(tree, fn):
+def cast_params(tree, dtype, key=None):
+    """Every leaf to ``dtype`` (no copy where it already is), except the
+    mixer's leaves that stay f32 at any type."""
+    from repro_torch.models.model import F32_LEAVES
     if isinstance(tree, dict):
-        return {k: _tree(v, fn) for k, v in tree.items()}
+        return {k: cast_params(v, dtype, k) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_tree(v, fn) for v in tree]
-    return fn(tree)
+        return [cast_params(v, dtype) for v in tree]
+    return tree if key in F32_LEAVES else tree.to(dtype)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return [tree]
+
+
+def kernel_counts() -> dict:
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.paged_attention import (
+        paged_attention, paged_prefill_attention)
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    return {"paged_prefill_attention": paged_prefill_attention,
+            "paged_attention": paged_attention,
+            "flash_prefill": flash_prefill, "ssd_scan": ssd_scan}
+
+
+def main_path(tag, fn, *args):
+    """Drive one main path with every kernel's count zeroed just before
+    and read just after. Returns (fn's result, counts)."""
+    wrappers = kernel_counts()
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn(*args)
+    counts = {n: w.launches for n, w in wrappers.items()}
+    log(f"[launches] {tag}: {counts}")
+    return out, counts
 
 
 def main() -> int:
@@ -461,9 +763,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
     from repro_torch.device import resolve_device
-    from repro_torch.kernels.paged_attention import (
-        paged_attention, paged_prefill_attention)
+    from repro_torch.models.model import init_params
     dev = resolve_device("cuda")
     t_start = time.perf_counter()
     card_line = card()
@@ -471,20 +773,63 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
     build_kernels()
     rows = kernels_phase(dev)
-    # the main path: counts from zero just before, read just after
-    paged_attention.launches = 0
-    paged_prefill_attention.launches = 0
-    eng = engine_phase(dev)
-    counts = {"paged_attention": paged_attention.launches,
-              "paged_prefill_attention": paged_prefill_attention.launches}
-    log(f"[engine] kernel launches on the main path: {counts}")
-    for name, n in counts.items():
-        check(n > 0, f"{name} never launched on the main path")
+    rows.update(prefill_kernels_phase(dev))
+    total = dict.fromkeys(rows, 0)
+
+    def add(counts, expect):
+        for name, n in counts.items():
+            total[name] += n
+        for name, n in expect.items():
+            check(counts[name] == n if n else counts[name] > 0,
+                  f"{name}: {counts[name]} launches, expected "
+                  f"{n or 'some'}")
+
+    # the paged engine, both planes: (a), (b) and the profiled window
+    eng, counts = main_path("paged engine (a)+(b)", engine_phase, dev)
+    add(counts, {"paged_prefill_attention": 0, "paged_attention": 0})
+    cfg, params = eng["cfg"], eng["params"]
+    # (a') the per-token demo: turns 0 of alice and bob take the graft
+    _, counts = main_path("per-token demo (a')", tokenwise_demo_phase, cfg,
+                          params, eng["kw"], eng["histories"])
+    add(counts, {"paged_attention": 0,
+                 "flash_prefill": 2 * cfg.num_layers})
+    step_phase(dev, cfg, params)
+    # (c) the dense single-turn engine: 4 slots, capacity 4096
+    rng = np.random.default_rng(SEED)
+    prompts = prompts_for(cfg, rng, [2048, *rng.integers(256, 2048, 3)])
+    out, counts = main_path("single-turn qwen2-1.5b (c)", single_turn_serve,
+                            cfg, params, dev, prompts, 32, 4096)
+    add(counts, {"flash_prefill": len(prompts) * cfg.num_layers})
+    single_turn_check(cfg, params, dev, prompts, out, 32, 4096)
+    del eng, params
+    # (d) mamba2-1.3b at full width; prompts no multiple of its chunk
+    t0 = time.perf_counter()
+    mcfg = get_config("mamba2-1.3b")
+    mparams = init_params(mcfg, torch.Generator(device=dev).manual_seed(
+        SEED), dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(mparams))
+    log(f"[single] {mcfg.name}: {mcfg.num_layers} layers d={mcfg.d_model} "
+        f"{n_params / 1e9:.3f} B parameters in bf16, random weights (seed "
+        f"{SEED}) in {time.perf_counter() - t0:.1f} s")
+    # num_params counts the matrices and convs, not the norms and biases
+    check(mcfg.num_layers == 48 and mcfg.d_model == 2048
+          and mparams["embed"].dtype == torch.bfloat16
+          and abs(n_params / mcfg.num_params() - 1) < 1e-3,
+          "not full-width mamba2-1.3b")
+    lens = [2000, *rng.integers(256, 2048, 3)]
+    lens = [n + 1 if n % mcfg.ssm.chunk_size == 0 else n for n in lens]
+    prompts = prompts_for(mcfg, rng, lens)
+    out, counts = main_path("single-turn mamba2-1.3b (d)",
+                            single_turn_serve, mcfg, mparams, dev, prompts,
+                            32, 4096)
+    add(counts, {"ssd_scan": len(prompts) * mcfg.num_layers})
+    single_turn_check(mcfg, mparams, dev, prompts, out, 32, 4096)
+    for name, n in total.items():
+        check(n > 0, f"{name} never launched on a main path")
         rows[name]["launches"] = n
-    step_phase(dev, eng["cfg"], eng["params"])
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [rows["paged_prefill_attention"],
-                                  rows["paged_attention"]]}))
+    print(json.dumps({"kernels": [rows[n] for n in SOURCES]}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

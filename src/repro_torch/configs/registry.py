@@ -222,9 +222,9 @@ def list_configs() -> list:
 def _ensure_loaded() -> None:
     if _REGISTRY:
         return
-    # the port serves one architecture so far; the others land with
-    # their model families
-    from repro_torch.configs import qwen2_1_5b  # noqa: F401
+    # the port serves the dense and ssm families so far; the other
+    # architectures land with their model families
+    from repro_torch.configs import mamba2_1_3b, qwen2_1_5b  # noqa: F401
 
 
 def reduced(cfg: ModelConfig, *, layers: int = 2, d_model: int = 64,

@@ -1,10 +1,13 @@
-"""Plain PyTorch versions of the paged-attention kernels.
+"""Plain PyTorch versions of the kernels.
 
 Deliberately naive (pages gathered into a dense sequence, logits
-materialised): slow but obviously right. The kernel wrappers take them
-for CPU tensors, and the kernels are held against them on the card.
-They mirror ``repro.kernels.ref`` of the JAX package, including its
-finite ``NEG_INF`` sentinel and its zeroed padding rows.
+materialised, the SSD recurrence run token by token): slow but
+obviously right. The attention kernels' wrappers take them for CPU
+tensors, and the kernels are held against them on the card; the SSD
+scan's plain version is the model's own ``models.ssm.ssd_chunked``,
+and ``ssd_scan_ref`` is the oracle both are tested against. They
+mirror ``repro.kernels.ref`` of the JAX package, including its finite
+``NEG_INF`` sentinel and its zeroed padding rows.
 """
 from __future__ import annotations
 
@@ -74,3 +77,48 @@ def paged_prefill_attention_ref(q, k_pages, v_pages, block_tables,
     out = torch.where(valid.any(-1)[..., None, None, None], out,
                       torch.zeros((), device=q.device))
     return out.reshape(B, Q, Hq, D).to(q.dtype)
+
+
+def flash_prefill_ref(q, k, v, *, causal: bool = True, window=None,
+                      q_offset: int = 0):
+    """Dense attention with causal and sliding-window masks.
+
+    q [B, Hq, Sq, D], k/v [B, Hkv, Skv, D] -> [B, Hq, Sq, D]; query row
+    t sits at position ``q_offset + t`` (chunked prefill against a
+    longer KV prefix). Logits materialised in f32.
+    """
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B, Hkv, G, Sq, D).float()
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) / math.sqrt(D)
+    q_pos = torch.arange(Sq, device=q.device)[:, None] + q_offset
+    k_pos = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= (q_pos - k_pos) < window
+    logits = torch.where(mask, logits, torch.tensor(NEG_INF, device=q.device))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    return out.reshape(B, Hq, Sq, D).to(q.dtype)
+
+
+def ssd_scan_ref(X, dA, B_mat, C_mat):
+    """The SSD recurrence token by token from a zero state — the ground
+    truth of the chunked scan.
+
+    X [B, L, H, P] (dt-scaled inputs), dA [B, L, H] log-decay,
+    B_mat/C_mat [B, L, H, N]. Returns (Y [B, L, H, P] in X's dtype,
+    state [B, H, P, N] f32).
+    """
+    b, l, h, p = X.shape
+    n = B_mat.shape[-1]
+    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=X.device)
+    ys = []
+    for t in range(l):
+        state = state * torch.exp(dA[:, t].float())[..., None, None] \
+            + X[:, t].float()[..., :, None] * B_mat[:, t].float()[..., None, :]
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, C_mat[:, t].float()))
+    return torch.stack(ys, dim=1).to(X.dtype), state

@@ -2,8 +2,10 @@
 tensors, in the JAX package's pytree layout (``[d, H, hd]`` projection
 weights, ``1 + w`` RMSNorm scales) so weights carry across one to one.
 
-Attention itself is not here: the paged engine calls the hand-written
-kernels in ``repro_torch.kernels.paged_attention``.
+``gqa_attention`` is the reference's einsum attention under a boolean
+mask; the ring-cache decode uses it over the cache's W slots. Prefill
+and the paged engine attend through the hand-written kernels in
+``repro_torch.kernels``.
 """
 from __future__ import annotations
 
@@ -56,6 +58,46 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------- attention
+NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+def attention_mask(q_pos, kv_pos, *, causal: bool, window=None,
+                   kv_valid=None):
+    """Boolean [B, Sq, Skv] mask (True = attend). q_pos [B, Sq] and
+    kv_pos [B, Skv] are absolute positions; ``window`` keeps
+    ``q - k < window``."""
+    q = q_pos[:, :, None]
+    k = kv_pos[:, None, :]
+    mask = torch.ones(torch.broadcast_shapes(q.shape, k.shape),
+                      dtype=torch.bool, device=q_pos.device)
+    if causal:
+        mask = mask & (k <= q)
+    if window is not None:
+        mask = mask & (q - k < window)
+    if kv_valid is not None:
+        mask = mask & kv_valid[:, None, :]
+    return mask
+
+
+def gqa_attention(q, k, v, mask):
+    """Grouped-query attention, q [B, Sq, Hq, D], k/v [B, Skv, Hkv, D],
+    mask [B, Sq, Skv] bool -> [B, Sq, Hq, D]. Logits and softmax in f32
+    (the reference's ``preferred_element_type``), probabilities cast to
+    v's dtype for the value product."""
+    B, Sq, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B, Sq, Hkv, G, D)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
+                          k.float()) / math.sqrt(D)
+    logits = torch.where(mask[:, None, None], logits,
+                         torch.tensor(NEG_INF, device=q.device))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype), v)
+    return out.reshape(B, Sq, Hq, v.shape[-1])
 
 
 # ----------------------------------------------------------------- mlp

@@ -25,11 +25,13 @@ page, where duplicate targets are harmless because no live row ever
 reads it. PyTorch runs eagerly, so the reference's jit cache has no
 counterpart; ``_q_bucket`` stays because it bounds the step shapes.
 
+Turn 0 on the per-token plane (``fused_step=False``) is the
+reference's dense graft: one B=1 ring-cache ``prefill`` through the
+``flash_prefill`` kernel, copied into the session's pages.
+
 Out of this slice (each raises ``NotImplementedError`` naming its
 ROADMAP item): ``mesh``, ``prefix_cache``, ``spec_decode``,
-``kv_quant="int8"``, ``add_session`` on the per-token plane (it needs
-the dense ``models.prefill`` graft) and the cross-replica migration
-methods.
+``kv_quant="int8"`` and the cross-replica migration methods.
 """
 from __future__ import annotations
 
@@ -54,7 +56,7 @@ from repro_torch.kvcache.paged import OutOfPages, PagedPool
 from repro_torch.kvcache.quant import KVWireCodec
 from repro_torch.models import layers as L
 from repro_torch.models.model import _embed, _logits, _mlp_block, \
-    layer_params
+    init_cache, layer_params, prefill
 from repro_torch.serving.block_tables import BatchTables, \
     FusedBatchTables, LayerStackedPages, assemble, assemble_fused
 from repro_torch.serving.engine import RoundLimitExceeded, _StepClock, \
@@ -633,8 +635,9 @@ class PagedRealtimeEngine:
             # extension share the one fused path (DESIGN.md §11)
             tok = self._prefill_fused(slot, sess, prompt)
         elif first and sess.kv_len == 0:
-            raise _not_ported("add_session on the per-token plane "
-                              "(the dense models.prefill graft)", "8")
+            # the dense graft writes whole pages from position 0 — only
+            # valid when nothing (no attached prefix) precedes it
+            tok = self._prefill_dense(sess, prompt)
         else:
             tok = self._prefill_paged(slot, sess, prompt)
         req.phase = Phase.DECODE
@@ -644,6 +647,29 @@ class PagedRealtimeEngine:
         sess.turn_stats[-1]["ttft_s"] = self.clock.now() - sess.turn_arrival
         self._sync_page_counts(sid)
         return slot
+
+    def _prefill_dense(self, sess: PagedSession, prompt: np.ndarray) -> int:
+        """Turn-0 fast path: one dense B=1 prefill (attention through the
+        ``flash_prefill`` kernel), grafted into the session's pool pages
+        (page-aligned ``index_copy_`` into the page store)."""
+        sid = sess.session_id
+        P = int(prompt.shape[0])
+        npages = self.pool.pages_for(P)
+        cap = npages * self.page_size
+        c1 = init_cache(self.cfg, 1, cap, self.device)
+        logits, c1 = prefill(self.cfg, self.params,
+                             self._tensor(prompt.astype(np.int64))[None, :],
+                             c1)
+        phys = self._tensor(np.asarray(self.pool.seq(sid).pages[:npages],
+                                       np.int64))
+        shape = (self.cfg.num_layers, npages, self.page_size,
+                 *c1["k"].shape[3:])
+        self.k_pages.index_copy_(1, phys, c1["k"][:, 0].reshape(shape))
+        self.v_pages.index_copy_(1, phys, c1["v"][:, 0].reshape(shape))
+        sess.kv_len = P
+        sess.token_ids = [int(t) for t in prompt]
+        self.clock.tick()
+        return int(torch.argmax(logits[0]))
 
     def _prefill_fused(self, slot: int, sess: PagedSession,
                        prompt: np.ndarray) -> int:
@@ -1166,10 +1192,6 @@ def run_multiturn_demo(cfg, params, *, slots: int = 2, page_size: int = 8,
     ``pcie_gb_s`` sets the modeled channel so a page's transfer time
     matches the script's. Returns per-turn stats for both sessions.
     """
-    if not fused_step:
-        raise _not_ported("add_session on the per-token plane "
-                          "(fused_step=False needs the dense "
-                          "models.prefill graft)", "8")
     eng = PagedRealtimeEngine(cfg, params, slots=slots,
                               page_size=page_size,
                               pages_per_seq=pages_per_seq,

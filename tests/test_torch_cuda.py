@@ -78,3 +78,70 @@ def test_cuda_kernels_match_plain(dtype):
                                     one)
         d = paged_attention(q[:, 0].contiguous(), kp, vp, bt, qs + 1)
         assert torch.equal(f[:, 0], d)
+
+
+def flash_case(seed, B, Hq, Hkv, Sq, Skv, D):
+    """q [B, Hq, Sq, D], k/v [B, Hkv, Skv, D], standard normal."""
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(s).astype(np.float32)
+                 for s in ((B, Hq, Sq, D), (B, Hkv, Skv, D),
+                           (B, Hkv, Skv, D)))
+
+
+def ssd_case(seed, b, l, h, p, n):
+    """The JAX sweep's inputs: X, B, C ~ N(0, 0.25), dA = -0.3 |N(0, 1)|."""
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((b, l, h, p)).astype(np.float32) * 0.5
+    dA = -np.abs(rng.standard_normal((b, l, h))).astype(np.float32) * 0.3
+    B = rng.standard_normal((b, l, h, n)).astype(np.float32) * 0.5
+    C = rng.standard_normal((b, l, h, n)).astype(np.float32) * 0.5
+    return X, dA, B, C
+
+
+# lengths that are no multiple of the kernel's tiles, a window, an offset
+FLASH_CUDA_SHAPES = [          # B, Hq, Hkv, Sq, Skv, D, window, q_offset
+    (1, 12, 2, 200, 200, 128, None, 0),
+    (2, 4, 4, 70, 70, 64, 24, 0),
+    (1, 8, 2, 33, 97, 64, None, 64),
+    (1, 4, 2, 50, 130, 64, 32, 80),
+]
+SSD_CUDA_SHAPES = [            # b, l, h, p, n, chunk
+    (1, 512, 4, 64, 128, 256),
+    (2, 96, 3, 32, 16, 32),
+    (1, 200, 2, 16, 128, 40),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_prefill_matches_plain(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the H100)")
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    for B, Hq, Hkv, Sq, Skv, D, window, q_offset in FLASH_CUDA_SHAPES:
+        q, k, v = (torch.from_numpy(a).to("cuda", TDT[dtype]) for a in
+                   flash_case(0, B, Hq, Hkv, Sq, Skv, D))
+        got = flash_prefill(q, k, v, window=window, q_offset=q_offset)
+        want = tref.flash_prefill_ref(q, k, v, window=window,
+                                      q_offset=q_offset)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_ssd_scan_matches_plain(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the H100)")
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models.ssm import ssd_chunked
+    tol = 4 * TOL[dtype]             # the recurrence accumulates over l
+    for b, l, h, p, n, chunk in SSD_CUDA_SHAPES:
+        X, dA, B, C = (torch.from_numpy(a).to("cuda", TDT[dtype]) for a in
+                       ssd_case(0, b, l, h, p, n))
+        Y, st = ssd_scan(X, dA, B, C, chunk=chunk)
+        assert Y.dtype == X.dtype and st.dtype == torch.float32
+        f32 = [t.float() for t in (X, dA, B, C)]
+        for Yw, stw in (ssd_chunked(*f32, chunk), tref.ssd_scan_ref(*f32)):
+            torch.testing.assert_close(Y.float(), Yw, rtol=tol, atol=tol)
+            torch.testing.assert_close(st, stw, rtol=tol, atol=tol)

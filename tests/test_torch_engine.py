@@ -75,8 +75,7 @@ def _close_taps(got, want):
 # ======================================================================
 # (a) the run_multiturn_demo script
 # ======================================================================
-@pytest.fixture(scope="module")
-def demos():
+def _run_demos(fused_step: bool):
     """Both demos, each with its engine captured: the JAX one as it
     stands (it builds its own weights from PRNGKey(0)), the port's with
     the same weights and the JAX script's own sizes."""
@@ -86,11 +85,25 @@ def demos():
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jpe, "PagedRealtimeEngine", _recording(jpe, made_j))
         mp.setattr(tpe, "PagedRealtimeEngine", _recording(tpe, made_t))
-        jout = jpe.run_multiturn_demo(seed=0, log=quiet)
+        jout = jpe.run_multiturn_demo(seed=0, fused_step=fused_step,
+                                      log=quiet)
         tout = tpe.run_multiturn_demo(
             tcfg, tp, slots=2, page_size=8, pages_per_seq=9, num_pages=11,
-            pcie_gb_s=0.01, seed=0, device="cpu", log=quiet)
+            pcie_gb_s=0.01, seed=0, fused_step=fused_step, device="cpu",
+            log=quiet)
     return (jout, made_j[0]), (tout, made_t[0])
+
+
+@pytest.fixture(scope="module")
+def demos():
+    return _run_demos(fused_step=True)
+
+
+@pytest.fixture(scope="module")
+def tokenwise_demos():
+    """The demo on the per-token plane: turn 0 takes the dense prefill
+    graft (``_prefill_dense``) in both frameworks."""
+    return _run_demos(fused_step=False)
 
 
 def test_demo_histories_and_turn_stats(demos):
@@ -117,6 +130,48 @@ def test_demo_logits(demos):
     (_, jeng), (_, teng) = demos
     assert len(teng.taps) > 50
     _close_taps(teng.taps, jeng.taps)
+
+
+def test_tokenwise_demo_matches_jax(tokenwise_demos):
+    (jout, jeng), (tout, teng) = tokenwise_demos
+    assert {s: x.history for s, x in teng.sessions.items()} == \
+        {s: x.history for s, x in jeng.sessions.items()}
+    assert tout["turns"] == jout["turns"]
+    assert teng.offload_events == jeng.offload_events
+    assert vars(teng.preloader.stats) == vars(jeng.preloader.stats)
+    assert tout == jout
+    teng.check_invariants()
+
+
+def test_tokenwise_demo_counts(tokenwise_demos):
+    """The JAX demo's counts: 5 evictions, 1 sync reload, 1 preload
+    admitted and hit; no fused launch."""
+    _, (tout, teng) = tokenwise_demos
+    pre = tout["preload"]
+    assert tout["offload_events"] == 5
+    assert pre["sync_fallbacks"] == 1
+    assert pre["admitted"] == 1 and pre["hits"] == 1
+    assert teng.fused_launches == 0
+
+
+def test_tokenwise_demo_logits(tokenwise_demos):
+    (_, jeng), (_, teng) = tokenwise_demos
+    assert len(teng.taps) > 50
+    _close_taps(teng.taps, jeng.taps)
+
+
+def test_tokenwise_demo_matches_fused_demo(demos, tokenwise_demos):
+    """Within the port, the per-token demo gives the fused demo's token
+    histories and per-turn counts (its clock differs: it ticks once per
+    prompt token)."""
+    (_, (fout, feng)), (_, (tout, teng)) = demos, tokenwise_demos
+    assert {s: x.history for s, x in teng.sessions.items()} == \
+        {s: x.history for s, x in feng.sessions.items()}
+
+    def counts(out):
+        return {s: [(t["generated"], t["aborted"], t["re_prefill_tokens"])
+                    for t in ts] for s, ts in out["turns"].items()}
+    assert counts(tout) == counts(fout)
 
 
 # ======================================================================
@@ -280,11 +335,54 @@ def test_out_of_slice_options_raise(tiny, kw, item):
         tpe.PagedRealtimeEngine(tcfg, tp, device="cpu", **kw)
 
 
-def test_tokenwise_add_session_raises(tiny):
-    _, _, tcfg, tp = tiny
-    eng = tpe.PagedRealtimeEngine(tcfg, tp, device="cpu", fused_step=False)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        eng.add_session("a", np.arange(5), max_new_tokens=2)
+def _drive_add_session(make, cfg, seed):
+    """Turn 0 through ``add_session`` on the per-token plane (the dense
+    prefill graft), decoded by ``run_round``; then an eviction and a
+    second turn through ``start_turn``. Returns (histories, event
+    stream, turn stats, engine)."""
+    rng = np.random.default_rng(seed)
+    eng = _tap(make(slots=2, page_size=4, pages_per_seq=16, num_pages=24,
+                    fused_step=False))
+    stream = []
+
+    def drive():
+        while eng.active():
+            stream.append(eng.run_round(
+                {i: 1 for i, s in eng.slot_state.items()
+                 if s is not None and s.request.is_live()}))
+    sa = eng.add_session("a", rng.integers(0, cfg.vocab_size, size=13),
+                         max_new_tokens=6)
+    sb = eng.add_session("b", rng.integers(0, cfg.vocab_size, size=6),
+                         max_new_tokens=4)
+    stream.append(("slots", sa, sb))
+    drive()
+    stream.append(("evicted", eng.kv.evict(4, eng.clock.now())))
+    eng.flush_transfers()
+    eng.start_turn("a", rng.integers(0, cfg.vocab_size, size=3),
+                   max_new_tokens=5)
+    drive()
+    eng.check_invariants()
+    hist = {sid: s.history for sid, s in eng.sessions.items()}
+    return hist, stream, {sid: s.turn_stats
+                          for sid, s in eng.sessions.items()}, eng
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_tokenwise_add_session_matches_jax(tiny, seed):
+    """add_session on the per-token plane: the port's dense graft gives
+    the JAX engine's histories, events, turn stats and page traffic."""
+    jcfg, jp, tcfg, tp = tiny
+    want = _drive_add_session(
+        lambda **kw: jpe.PagedRealtimeEngine(jcfg, jp, **kw), jcfg, seed)
+    got = _drive_add_session(
+        lambda **kw: tpe.PagedRealtimeEngine(tcfg, tp, device="cpu", **kw),
+        tcfg, seed)
+    assert got[0] == want[0], "token histories diverged"
+    assert got[1] == want[1], "event streams diverged"
+    assert got[2] == want[2], "turn stats diverged"
+    assert got[3].offload_events == want[3].offload_events
+    assert got[3].kv.reloaded_blocks == want[3].kv.reloaded_blocks
+    _close_taps(got[3].taps, want[3].taps)
 
 
 def test_cuda_entry_points_raise_without_gpu(tiny):
@@ -293,6 +391,7 @@ def test_cuda_entry_points_raise_without_gpu(tiny):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")
     from repro_torch.launch import serve
+    from repro_torch.serving.engine import RealtimeLLMEngine
     _, _, tcfg, tp = tiny
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda")
@@ -302,6 +401,13 @@ def test_cuda_entry_points_raise_without_gpu(tiny):
         serve.main(["--config", "tiny"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tpe.run_multiturn_demo(tcfg, tp, log=lambda *_a: None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpe.run_multiturn_demo(tcfg, tp, fused_step=False,
+                               log=lambda *_a: None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--no-fused-step", "--config", "tiny"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RealtimeLLMEngine(tcfg, tp)                # default device: cuda
 
 
 def _imports(path: Path):

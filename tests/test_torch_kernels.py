@@ -1,11 +1,14 @@
-"""The port's paged-attention kernels against the JAX package's.
+"""The port's kernels against the JAX package's: paged attention, dense
+prefill attention and the SSD scan.
 
 On the CPU the port's wrappers take their plain versions; these are held
 against the Pallas kernels (interpret mode, as tests/test_kernels.py and
 tests/test_fused_step.py run them) and against the JAX oracles in
 ``repro.kernels.ref``, on the same inputs made with numpy. Tolerances
-are the reference's own: 2e-5 in f32 and 2e-2 in bf16. Only valid query
-rows are compared (padding rows are unspecified).
+are the reference's own: 2e-5 in f32 and 2e-2 in bf16 (four times that
+for the SSD scan, whose recurrence accumulates error over the
+sequence). Only valid query rows of the paged kernels are compared
+(padding rows are unspecified).
 
 The CUDA kernels themselves run only on the card:
 ``tests/test_torch_cuda.py`` holds them there (``python3 chip_smoke.py``
@@ -17,13 +20,19 @@ import pytest
 import torch
 
 from repro.kernels import ref as jref
+from repro.kernels.flash_prefill import flash_prefill as j_flash
 from repro.kernels.paged_attention import paged_attention as j_decode
 from repro.kernels.paged_attention import \
     paged_prefill_attention as j_prefill
+from repro.kernels.ssd_scan import ssd_scan as j_ssd_scan
+from repro.models.ssm import ssd_chunked as j_ssd_chunked
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.flash_prefill import flash_prefill
 from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_prefill_attention)
+from repro_torch.kernels.ssd_scan import ssd_scan
 from test_torch_cuda import (PREFILL_SHAPES, TDT, TOL, _prefill_case,
-                             _valid_close)
+                             _valid_close, flash_case, ssd_case)
 
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 
@@ -103,3 +112,76 @@ def test_wrapper_rejects_devices_without_a_kernel():
         paged_attention(q, kp, kp, bt, sl)
     with pytest.raises(ValueError, match="no kernel"):
         paged_prefill_attention(q[:, None], kp, kp, bt, sl, sl)
+
+
+# the six shapes of tests/test_kernels.py::test_flash_prefill_sweep; the
+# Pallas kernel's tiles bq/bkv apply to the JAX side only
+FLASH_SHAPES = [  # B, Hq, Hkv, Sq, Skv, D, bq, bkv, window, q_offset
+    (1, 2, 2, 32, 32, 16, 8, 8, None, 0),       # MHA causal
+    (2, 8, 2, 64, 64, 32, 16, 16, None, 0),     # GQA
+    (1, 4, 1, 128, 128, 64, 32, 32, None, 0),   # MQA larger
+    (2, 4, 4, 64, 64, 16, 16, 16, 24, 0),       # sliding window
+    (1, 8, 2, 32, 96, 32, 16, 16, None, 64),    # chunked prefill offset
+    (1, 4, 2, 16, 80, 16, 8, 16, 32, 64),       # offset + window
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,bq,bkv,window,q_offset",
+                         FLASH_SHAPES)
+def test_flash_prefill_plain_matches_jax(B, Hq, Hkv, Sq, Skv, D, bq, bkv,
+                                         window, q_offset, dtype):
+    j, t = zip(*(_both(a, dtype) for a in
+                 flash_case(2, B, Hq, Hkv, Sq, Skv, D)))
+    got = flash_prefill(*t, causal=True, window=window, q_offset=q_offset)
+    assert got.dtype == TDT[dtype] and got.shape == (B, Hq, Sq, D)
+    got = got.float().numpy()
+    tol = TOL[dtype]
+    for want in (j_flash(*j, causal=True, window=window, q_offset=q_offset,
+                         block_q=bq, block_kv=bkv, interpret=True),
+                 jref.flash_prefill_ref(*j, causal=True, window=window,
+                                        q_offset=q_offset)):
+        np.testing.assert_allclose(got, np.asarray(want, np.float32),
+                                   rtol=tol, atol=tol)
+
+
+# the four shapes of tests/test_kernels.py::test_ssd_scan_sweep
+SSD_SHAPES = [  # b, l, h, p, n, chunk
+    (1, 64, 1, 8, 8, 16),
+    (2, 128, 3, 16, 8, 32),
+    (1, 256, 2, 64, 128, 64),   # production-shaped head
+    (2, 96, 4, 32, 16, 32),     # chunk not power-of-two multiple
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,l,h,p,n,chunk", SSD_SHAPES)
+def test_ssd_scan_plain_matches_jax(b, l, h, p, n, chunk, dtype):
+    """The kernel's plain version (the model's chunked SSD in f32) and
+    the port's sequential oracle against the Pallas kernel, the JAX
+    oracle and the JAX model's ``ssd_chunked``."""
+    j, t = zip(*(_both(a, dtype) for a in ssd_case(3, b, l, h, p, n)))
+    Y, st = ssd_scan(*t, chunk=chunk)
+    assert Y.dtype == TDT[dtype] and st.dtype == torch.float32
+    j32 = [jnp.asarray(x, jnp.float32) for x in j]
+    wants = [j_ssd_scan(*j, chunk=chunk, interpret=True),
+             jref.ssd_scan_ref(*j32), j_ssd_chunked(*j32, chunk)]
+    tol = 4 * TOL[dtype]
+    for got_y, got_st in ((Y, st), tref.ssd_scan_ref(*t)):
+        for want_y, want_st in wants:
+            np.testing.assert_allclose(got_y.float().numpy(),
+                                       np.asarray(want_y, np.float32),
+                                       rtol=tol, atol=tol)
+            np.testing.assert_allclose(got_st.numpy(), np.asarray(want_st),
+                                       rtol=tol, atol=tol)
+
+
+def test_new_wrappers_reject_devices_without_a_kernel():
+    q = torch.empty((1, 2, 4, 64), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        flash_prefill(q, q, q)
+    X = torch.empty((1, 32, 2, 16), device="meta")
+    dA = torch.empty((1, 32, 2), device="meta")
+    B = torch.empty((1, 32, 2, 16), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        ssd_scan(X, dA, B, B, chunk=16)
