@@ -52,6 +52,11 @@ REPLACES = {"paged_prefill_attention":
             "flash_prefill": "src/repro/kernels/flash_prefill.py:80",
             "ssd_scan": "src/repro/kernels/ssd_scan.py:67"}
 SSD_TOL = {d: 4 * t for d, t in TOL.items()}   # the recurrence accumulates
+# the bf16 paged kernels against the f32 split plain version on the same
+# inputs, per query row relative to the row's largest |value|: rounding
+# P and the output to bf16 costs a few 2^-9; a span left out or a merge
+# that ignores m costs more (``planted_faults`` shows it on each case)
+REL_TOL = 2e-2
 
 
 class SmokeFailure(RuntimeError):
@@ -73,7 +78,10 @@ def log(*a) -> None:
 class Timer:
     """Mean device time of a call with the L2 cache flushed before each
     launch (in the engine each layer reads its own pages after the MLP
-    has streamed ~80 MB of weights, so the kernel finds them cold)."""
+    has streamed ~80 MB of weights, so the kernel finds them cold).
+    The events bracket the call as the host enqueues it, so an idle
+    device also waits for the wrapper's checks, allocations and launches
+    between them."""
 
     def __init__(self, dev):
         self.flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
@@ -216,6 +224,18 @@ def build_kernels() -> None:
         for line in rep.splitlines():
             if "Used" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+    # tensor-core proof: every bf16 attention kernel's SASS holds HMMA
+    # (matched by mangled name; each pattern must match some kernel)
+    seen = {"paged_attention_kernelI13__nv_bfloat16": 0,
+            "flash_prefill_bf16": 0}
+    for name in _build.SOURCES:
+        for fn, n in _build.sass_counts(name).items():
+            log(f"[build] {name}: {n} HMMA in {fn[:110]}")
+            for pattern in seen:
+                if pattern in fn:
+                    seen[pattern] += 1
+                    check(n > 0, f"{fn}: no HMMA, not on the tensor cores")
+    check(all(seen.values()), f"bf16 attention kernels not found: {seen}")
 
 
 def kernel_case(dev, dtype, B, Q, ctx, g):
@@ -243,6 +263,48 @@ def max_valid_err(got, want, ql):
     return max(errs)
 
 
+def row_scaled_err(got, want, ql):
+    """Largest error of a live query row (b, t, head) of [B, Q, Hq, D]
+    outputs, relative to that row's largest |want|."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs().amax(-1)
+    scale = want.abs().amax(-1).clamp_min(1e-30)
+    live = torch.arange(got.shape[1], device=got.device)[None, :] < \
+        ql[:, None]
+    return (err / scale)[live].max().item()
+
+
+def planted_faults(q, kp, vp, bt, qs, ql):
+    """The split plain version with a fault planted in it: span 1 left
+    out (its l set to 0, so the merge gives it weight 0), and a merge
+    that ignores m (every span weighted 1)."""
+    from repro_torch.kernels import ref
+    o, m, l = ref.paged_span_partials(q, kp, vp, bt, qs, ql)
+    drop = l.clone()
+    drop[..., 1] = 0
+    no_m = torch.where(l > 0, m.amax(-1, keepdim=True), m)
+    return {"span 1 left out": ref.merge_span_partials(o, m, drop, ql),
+            "merge ignores m": ref.merge_span_partials(o, no_m, l, ql)}
+
+
+def split_check(tag, got, q, kp, vp, bt, qs, ql) -> None:
+    """Hold a bf16 fused-kernel output to the f32 split plain version on
+    the same inputs at REL_TOL, and show that each planted fault breaks
+    that tolerance on these inputs."""
+    from repro_torch.kernels import ref
+    f32 = [x.float() for x in (q, kp, vp)]
+    want = ref.paged_prefill_attention_split_ref(*f32, bt, qs, ql)
+    err = row_scaled_err(got, want, ql)
+    faults = {k: row_scaled_err(w, want, ql)
+              for k, w in planted_faults(*f32, bt, qs, ql).items()}
+    log(f"[kernels] {tag}: bf16 fused kernel vs f32 split plain, per row "
+        f"relative {err} (tol {REL_TOL}); planted faults: {faults}")
+    check(err <= REL_TOL, f"{tag}: bf16 vs f32 split plain {err}")
+    for k, v in faults.items():
+        check(v > REL_TOL, f"{tag}: the tolerance misses a planted fault "
+              f"({k}: {v})")
+
+
 def kernels_phase(dev) -> dict:
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import (
@@ -268,17 +330,39 @@ def kernels_phase(dev) -> dict:
         torch.cuda.synchronize()
         e_d = (got_d.float() - want_d.float()).abs().max().item()
         bitwise = torch.equal(fused_q1[:, 0], got_d)
+        # row independence: the decode rows of the mixed Q = 16 launch
+        # are the decode kernel's rows, bit for bit
+        dec_rows = (ql == 1).nonzero().flatten()
+        mixed = torch.equal(got[dec_rows, 0], got_d[dec_rows])
         name = str(dtype).replace("torch.", "")
         log(f"[kernels] {name}: paged_prefill_attention max_abs_err {e_f} "
             f"paged_attention max_abs_err {e_d} (tol {TOL[dtype]}); "
-            f"fused Q=1 == decode bitwise: {bitwise}")
+            f"fused Q=1 == decode bitwise: {bitwise}; decode rows of the "
+            f"mixed launch == decode kernel bitwise: {mixed}")
         check(e_f <= TOL[dtype], f"paged_prefill_attention {name}: "
               f"err {e_f} > {TOL[dtype]}")
         check(e_d <= TOL[dtype], f"paged_attention {name}: "
               f"err {e_d} > {TOL[dtype]}")
         check(bitwise, f"{name}: fused kernel at Q=1 != decode kernel")
+        check(mixed, f"{name}: decode rows of the mixed launch != decode "
+              "kernel")
         if dtype != torch.bfloat16:
             continue
+        # the bf16 kernels against the plain version in f32 on the same
+        # bf16 inputs (output unrounded). Tolerance: the bf16 one, 2e-2;
+        # the kernels round P to bf16 before PV (2^-9 relative per
+        # weight) and their output to bf16, the f32 plain version neither
+        f32 = [x.float() for x in (q, kp, vp)]
+        e_f32 = max_valid_err(got, ref.paged_prefill_attention_ref(
+            *f32, bt, qs, ql), ql)
+        e_d32 = (got_d.float() - ref.paged_attention_ref(
+            f32[0][:, 0].contiguous(), *f32[1:], bt, sl)).abs().max().item()
+        log(f"[kernels] bf16 kernels vs f32 plain on the same inputs: "
+            f"paged_prefill_attention {e_f32}, paged_attention {e_d32} "
+            f"(tol {TOL[dtype]})")
+        check(max(e_f32, e_d32) <= TOL[dtype],
+              f"bf16 paged kernels vs f32 plain: {e_f32} / {e_d32}")
+        split_check("engine round", got, q, kp, vp, bt, qs, ql)
         # the engine's dtype: time kernel, plain version and yardstick
         for kname, fn, plain, args, err, dec in (
                 ("paged_prefill_attention", paged_prefill_attention,
@@ -303,7 +387,61 @@ def kernels_phase(dev) -> dict:
             log(f"[kernels] {kname} bf16 B={B} Q={1 if dec else Q} "
                 f"ctx={ctx}: {ms:.4f} ms (plain {plain_ms:.4f} ms, sdpa "
                 f"{lib_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by})")
+    long_context_rows(dev, timer, g)
     return rows
+
+
+def long_context_rows(dev, timer, g) -> None:
+    """Logged, not in the kernel rows: the paged kernels at thousands of
+    tokens of context (the engine's round shape), and one decode row
+    alone, a grid the sequence split has to fill. Each row walks up to
+    33 spans: in f32 the kernels hold the plain version to 2e-5, split
+    and merge included; in bf16 ``split_check`` holds the fused kernel to
+    the f32 split plain version per row. Timed in bf16."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import (
+        paged_attention, paged_prefill_attention)
+    cases = (("round", 8, 16, [4000, 3500, 3900, 2800, 4080, 3000, 3700,
+                                0]),
+             ("one row", 1, 1, [4096]))
+    for tag, B, Q, ctx in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, kp, vp, bt, qs, ql = kernel_case(dev, dtype, B, Q, ctx, g)
+            if B == 1:
+                ql = torch.ones_like(ql)
+            sl = qs + 1
+            qd = q[:, 0].contiguous()
+            got = paged_prefill_attention(q, kp, vp, bt, qs, ql)
+            got_d = paged_attention(qd, kp, vp, bt, sl)
+            e_f = max_valid_err(got, ref.paged_prefill_attention_ref(
+                q, kp, vp, bt, qs, ql), ql)
+            e_d = (got_d.float() - ref.paged_attention_ref(
+                qd, kp, vp, bt, sl).float()).abs().max().item()
+            torch.cuda.synchronize()
+            name = str(dtype).replace("torch.", "")
+            log(f"[kernels] long context, {tag}, {name}: max_abs_err "
+                f"paged_prefill_attention {e_f}, paged_attention {e_d} "
+                f"(tol {TOL[dtype]})")
+            check(max(e_f, e_d) <= TOL[dtype],
+                  f"long context {tag} {name}: err {e_f} / {e_d}")
+            if dtype != torch.bfloat16:
+                continue
+            split_check(f"long context, {tag}", got, q, kp, vp, bt, qs, ql)
+            for kname, fn, args, dec in (
+                    ("paged_prefill_attention", paged_prefill_attention,
+                     (q, kp, vp, bt, qs, ql), False),
+                    ("paged_attention", paged_attention,
+                     (qd, kp, vp, bt, sl), True)):
+                lens = None if dec else ql
+                ms = timer(lambda: fn(*args))
+                lib_ms = timer(sdpa_yardstick(args[0], kp, vp, bt, args[4],
+                                              lens, dec))
+                bound_ms, bound_by = attention_bound(args[0], kp, args[4],
+                                                     lens, dec)
+                log(f"[kernels] long context, {tag}: {kname} bf16 B={B} "
+                    f"Q={1 if dec else Q} ctx={ctx}: {ms:.4f} ms (sdpa "
+                    f"{lib_ms:.4f} ms, bound {bound_ms:.5f} ms by "
+                    f"{bound_by})")
 
 
 def prefill_kernels_phase(dev) -> dict:
@@ -345,6 +483,14 @@ def prefill_kernels_phase(dev) -> dict:
                 f"(tol {TOL[dtype]})")
             check(torch.isfinite(got).all().item() and ok,
                   f"flash_prefill {name} Sq={Sq}: err {err}")
+            if dtype == torch.bfloat16:
+                # against the plain version in f32 on the same bf16
+                # inputs: P is rounded to bf16 before PV (tol 2e-2)
+                e32, ok32 = allclose_err(got, ref.flash_prefill_ref(
+                    q.float(), k.float(), v.float(), **kw), TOL[dtype])
+                log(f"[kernels] bf16 flash_prefill vs f32 plain on the "
+                    f"same inputs: max_abs_err {e32} (tol {TOL[dtype]})")
+                check(ok32, f"bf16 flash_prefill vs f32 plain: {e32}")
             if dtype == torch.bfloat16 and Sq == 2048:
                 # the engine's type at its longest prompt
                 ms = timer(lambda: flash_prefill(q, k, v))
@@ -512,6 +658,16 @@ def tokenwise_demo_phase(cfg, params, kw, fused_histories) -> None:
     same = sum(hist[s] == fused_histories[s] for s in hist)
     log(f"[engine] (a') sessions with the fused demo's histories: "
         f"{same}/{len(hist)}")
+    if hist != fused_histories:
+        # tell bf16 rounding from a fault: in f32 the kernels agree with
+        # their plain versions to 2e-5, so both planes must agree there
+        c32 = cfg.replace(dtype="float32", param_dtype="float32")
+        p32 = cast_params(params, torch.float32)
+        h32 = {fused: run_demo(c32, p32, kw, fused=fused,
+                               tag=f"(a') f32 diagnosis, fused={fused}")
+               for fused in (True, False)}
+        log(f"[engine] (a') f32 diagnosis: both planes' histories equal: "
+            f"{h32[True] == h32[False]}")
     check(hist == fused_histories, "per-token demo histories differ from "
           "the fused demo's")
 

@@ -2,9 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is
 compiled by ``nvcc`` for ``sm_90a`` into a shared library under
-``kernels/build/`` (git-ignored), named by a hash of its source so an
-edited source is rebuilt, and loaded with ``ctypes``. Nothing here runs
-when the module is imported.
+``kernels/build/`` (git-ignored), named by a hash of its source and of
+the shared ``csrc/*.cuh`` headers so an edited source is rebuilt, and
+loaded with ``ctypes``. Nothing here runs when the module is imported.
 """
 from __future__ import annotations
 
@@ -39,8 +39,10 @@ def nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """Named by a hash of the source, the shared headers and the flags."""
+    text = b"".join(p.read_bytes() for p in
+                    [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD / f"lib{name}-{digest[:16]}.so"
 
 
@@ -82,6 +84,24 @@ def library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_lib_path(name)))
         _loaded[name] = lib
     return lib
+
+
+def sass_counts(name: str) -> dict:
+    """{kernel symbol: number of ``HMMA`` instructions, the tensor-core
+    products} in the built library's SASS, from ``cuobjdump
+    --dump-sass``."""
+    tool = Path(nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "--dump-sass", str(_lib_path(name))],
+                         capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        line = line.strip()
+        if line.startswith("Function : "):
+            fn = line[len("Function : "):]
+            counts[fn] = 0
+        elif fn is not None and " HMMA." in line:
+            counts[fn] += 1
+    return counts
 
 
 def timed_build(names=SOURCES) -> tuple:

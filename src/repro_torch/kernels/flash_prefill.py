@@ -5,7 +5,10 @@ It replaces the Pallas TPU kernel of the JAX package
 (``repro/kernels/flash_prefill.py``), which the ring-cache model's
 prefill computes as its masked ``gqa_attention``. What bounds it on an
 H100 is the causal QK^T and PV arithmetic at prompt lengths; the source
-file says what the design does about that.
+file says what the design does about that. The type picks the
+arithmetic: float32 runs on CUDA cores in f32, bfloat16 on the tensor
+cores (FlashAttention-2 on ``mma.sync``, with P rounded to bf16 before
+PV).
 
 The contract is the TPU kernel's (``causal``, ``window``, ``q_offset``,
 q/k/v ``[B, H, S, D]``, f32 or bf16, GQA through ``h // G``) except that

@@ -10,15 +10,21 @@ case, so the two agree bit for bit at Q = 1.
 
 What bounds them on an H100 is the K/V bytes they read (each valid page
 of each (row, KV head) once) at 3.35 TB/s; the source file says what
-the design does about that.
+the design does about that. Both types take one walk, split into spans
+of ``ref.SPAN_KEYS`` keys, whose f32 partials the wrapper allocates from
+the table width and a second kernel merges
+(``ref.paged_prefill_attention_split_ref`` is that computation in plain
+PyTorch); the type picks only the arithmetic of the tile products:
+float32 on CUDA cores, bfloat16 on the tensor cores.
 
 This slice ports the single-device contract: ``pos_stride = page``,
 ``pos_offset = 0``, no softmax stats and no tiling knobs (those come
 with the sharded plane and with autotune).
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
-plain version in ``kernels/ref.py``. Each wrapper counts its kernel
-launches in its ``launches`` attribute.
+plain version in ``kernels/ref.py``. Each wrapper counts its calls that
+launch the kernel in its ``launches`` attribute (one per call, though a
+call runs the split kernel and its merge).
 """
 from __future__ import annotations
 
@@ -32,7 +38,6 @@ from repro_torch.kernels._build import library
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 128)                  # the instantiations in the .cu
-_MAX_SMEM = 227 * 1024
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,13 +47,18 @@ def _lib():
     lib = library("paged_attention")
     if not getattr(lib, "_typed", False):
         lib.paged_prefill_attention_launch.argtypes = [
-            _I, _P, _P, _P, _P, _P, _P, _P,
-            _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+            _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+            _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
         lib.paged_prefill_attention_launch.restype = _I
         lib.paged_attention_launch.argtypes = [
-            _I, _P, _P, _P, _P, _P, _P,
-            _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+            _I, _P, _P, _P, _P, _P, _P, _P, _P,
+            _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
         lib.paged_attention_launch.restype = _I
+        lib.paged_span_keys.restype = _I
+        if lib.paged_span_keys() != ref.SPAN_KEYS:
+            raise RuntimeError(
+                f"paged_attention.cu spans {lib.paged_span_keys()} keys, "
+                f"ref.SPAN_KEYS is {ref.SPAN_KEYS}: rebuild from one source")
         lib._typed = True
     return lib
 
@@ -77,8 +87,6 @@ def _check(q, k_pages, v_pages, block_tables, ints):
                          f"pages of {Hkv} heads x {D}")
     if D not in _HEAD_DIMS:
         raise ValueError(f"head_dim {D} not in {_HEAD_DIMS}")
-    if 2 * page * D * 4 > _MAX_SMEM:
-        raise ValueError(f"page {page} x head_dim {D} exceeds shared memory")
     B = q.shape[0]
     if block_tables.dim() != 2 or block_tables.shape[0] != B:
         raise ValueError("block_tables must be [B, pages_per_seq]")
@@ -90,6 +98,20 @@ def _check(q, k_pages, v_pages, block_tables, ints):
             raise ValueError(f"{name} must be contiguous and 16-byte "
                              "aligned")
     return _DTYPES[q.dtype], page, Hkv, D, block_tables.shape[1]
+
+
+def split_scratch(q, Q: int, Hkv: int, D: int, page: int, pps: int):
+    """The kernel's f32 scratch for the span partials, shaped from the
+    table width alone (no device lengths are read): o [B, Hkv, nspan,
+    G*Q, D] and (m, l) [B, Hkv, nspan, G*Q, 2]."""
+    B, Hq = q.shape[0], q.shape[-2]
+    nspan = -(-pps * page // ref.SPAN_KEYS)
+    rows = Hq // Hkv * Q
+    o = torch.empty((B, Hkv, nspan, rows, D), dtype=torch.float32,
+                    device=q.device)
+    ml = torch.empty((B, Hkv, nspan, rows, 2), dtype=torch.float32,
+                     device=q.device)
+    return o, ml, nspan
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -118,10 +140,12 @@ def paged_prefill_attention(q, k_pages, v_pages, block_tables, q_start,
         (("q_start", q_start), ("q_lens", q_lens)))
     B, Q, Hq, _ = q.shape
     out = torch.empty_like(q)
+    o_part, ml_part, nspan = split_scratch(q, Q, Hkv, D, page, pps)
     err = _lib().paged_prefill_attention_launch(
         code, q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), q_start.data_ptr(), q_lens.data_ptr(),
-        out.data_ptr(), B, Q, Hq, Hkv, D, page, pps, 1.0 / math.sqrt(D),
+        out.data_ptr(), o_part.data_ptr(), ml_part.data_ptr(), B, Q, Hq, Hkv,
+        D, page, pps, nspan, 1.0 / math.sqrt(D),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "paged_prefill_attention")
     paged_prefill_attention.launches += 1
@@ -142,10 +166,12 @@ def paged_attention(q, k_pages, v_pages, block_tables, seq_lens):
                                      (("seq_lens", seq_lens),))
     B, Hq, _ = q.shape
     out = torch.empty_like(q)
+    o_part, ml_part, nspan = split_scratch(q, 1, Hkv, D, page, pps)
     err = _lib().paged_attention_launch(
         code, q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-        B, Hq, Hkv, D, page, pps, 1.0 / math.sqrt(D),
+        o_part.data_ptr(), ml_part.data_ptr(), B, Hq, Hkv, D, page, pps,
+        nspan, 1.0 / math.sqrt(D),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "paged_attention")
     paged_attention.launches += 1

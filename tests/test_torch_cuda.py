@@ -145,3 +145,116 @@ def test_cuda_ssd_scan_matches_plain(dtype):
         for Yw, stw in (ssd_chunked(*f32, chunk), tref.ssd_scan_ref(*f32)):
             torch.testing.assert_close(Y.float(), Yw, rtol=tol, atol=tol)
             torch.testing.assert_close(st, stw, rtol=tol, atol=tol)
+
+
+def _long_case(dev, dtype, B, Q, Hq, Hkv, D, page, ctx, seed=0):
+    """Rows 0-1 prefill a Q-token chunk after ``ctx`` tokens, the middle
+    rows decode one token, the last row pads (q_lens 0); the table is as
+    wide as the longest row needs, so rows walk several spans of
+    ``SPAN_KEYS`` keys and short rows leave spans empty."""
+    import math
+    pps = math.ceil((max(ctx) + Q) / page)
+    rng = np.random.default_rng(seed)
+    P = B * pps + 1
+    q = rng.standard_normal((B, Q, Hq, D)).astype(np.float32)
+    kp = rng.standard_normal((P, page, Hkv, D)).astype(np.float32)
+    vp = rng.standard_normal((P, page, Hkv, D)).astype(np.float32)
+    bt = rng.permutation(P - 1)[:B * pps].reshape(B, pps).astype(np.int32)
+    qs = np.array(ctx, np.int32)
+    ql = np.array([Q if i < 2 else (0 if i == B - 1 else 1)
+                   for i in range(B)], np.int32)
+    f = [torch.from_numpy(x).to(dev) for x in (q, kp, vp)]
+    return ([x.to(dtype) for x in f]
+            + [torch.from_numpy(x).to(dev) for x in (bt, qs, ql)])
+
+
+LONG_CASES = [  # B, Q, Hq, Hkv, D, page, ctx
+    (4, 16, 12, 2, 128, 16, [700, 0, 129, 40]),
+    (5, 8, 8, 2, 32, 8, [300, 127, 0, 128, 9]),
+    (4, 5, 4, 1, 32, 5, [260, 3, 60, 7]),       # page no divisor of 16
+]
+
+# The bf16 fused kernel against the f32 split plain version on the same
+# inputs, per query row relative to the row's largest |value|: rounding P
+# and the output to bf16 costs a few 2^-9, each planted fault of
+# ``_planted_faults`` far more (``test_torch_split.py`` shows both on
+# every LONG_CASES case).
+REL_TOL = 2e-2
+
+
+def _row_scaled_err(got, want, ql):
+    """Largest error of a live query row (b, t, head) of [B, Q, Hq, D]
+    outputs, relative to that row's largest |want|."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs().amax(-1)
+    scale = want.abs().amax(-1).clamp_min(1e-30)
+    live = torch.arange(got.shape[1], device=got.device)[None, :] < \
+        ql[:, None]
+    return (err / scale)[live].max().item()
+
+
+def _planted_faults(q, kp, vp, bt, qs, ql):
+    """The split plain version with a fault planted in it: span 1 left
+    out (its l set to 0, so the merge gives it weight 0), and a merge
+    that ignores m (every span weighted 1)."""
+    o, m, l = tref.paged_span_partials(q, kp, vp, bt, qs, ql)
+    drop = l.clone()
+    drop[..., 1] = 0
+    no_m = torch.where(l > 0, m.amax(-1, keepdim=True), m)
+    return {"span 1 left out": tref.merge_span_partials(o, m, drop, ql),
+            "merge ignores m": tref.merge_span_partials(o, no_m, l, ql)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_mixed_launch_decode_rows_bitwise(dtype):
+    """Row independence: in a mixed launch the decode rows equal, bit
+    for bit, the same rows from a ``paged_attention`` launch, with
+    several spans per row and empty spans."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the H100)")
+    for B, Q, Hq, Hkv, D, page, ctx in LONG_CASES:
+        q, kp, vp, bt, qs, ql = _long_case("cuda", TDT[dtype], B, Q, Hq,
+                                           Hkv, D, page, ctx)
+        got = paged_prefill_attention(q, kp, vp, bt, qs, ql)
+        dec = paged_attention(q[:, 0].contiguous(), kp, vp, bt, qs + 1)
+        rows = (ql == 1).nonzero().flatten()
+        assert rows.numel() > 0
+        assert torch.equal(got[rows, 0], dec[rows])
+        want = tref.paged_prefill_attention_ref(q, kp, vp, bt, qs, ql)
+        _valid_close(got.float().cpu(), want.float().cpu(), ql.cpu(),
+                     TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_kernels_match_f32_plain():
+    """The bf16 kernels against the plain versions computed in f32 from
+    the same bf16 inputs (the plain output unrounded). Tolerance 2e-2,
+    the reference's bf16 one: the kernels round P to bf16 before PV
+    (relative 2^-9 per weight) and round their output to bf16 (2^-9 of
+    |out|), the plain f32 version does neither. The fused kernel also
+    holds the f32 split plain version to REL_TOL of each row's scale, a
+    tolerance each planted fault breaks on the same inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the H100)")
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    tol = TOL["bfloat16"]
+    for B, Q, Hq, Hkv, D, page, ctx in LONG_CASES:
+        q, kp, vp, bt, qs, ql = _long_case("cuda", torch.bfloat16, B, Q, Hq,
+                                           Hkv, D, page, ctx)
+        got = paged_prefill_attention(q, kp, vp, bt, qs, ql)
+        want = tref.paged_prefill_attention_ref(q.float(), kp.float(),
+                                                vp.float(), bt, qs, ql)
+        _valid_close(got.float().cpu(), want.cpu(), ql.cpu(), tol)
+        f32 = [x.float() for x in (q, kp, vp)]
+        split = tref.paged_prefill_attention_split_ref(*f32, bt, qs, ql)
+        assert _row_scaled_err(got, split, ql) <= REL_TOL
+        for name, bad in _planted_faults(*f32, bt, qs, ql).items():
+            assert _row_scaled_err(bad, split, ql) > REL_TOL, name
+    for B, Hq, Hkv, Sq, Skv, D, window, q_offset in FLASH_CUDA_SHAPES:
+        q, k, v = (torch.from_numpy(a).to("cuda", torch.bfloat16) for a in
+                   flash_case(0, B, Hq, Hkv, Sq, Skv, D))
+        got = flash_prefill(q, k, v, window=window, q_offset=q_offset)
+        want = tref.flash_prefill_ref(q.float(), k.float(), v.float(),
+                                      window=window, q_offset=q_offset)
+        torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
