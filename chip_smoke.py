@@ -15,6 +15,7 @@ read just after:
 - (c) the single-turn ring-cache engine on qwen2-1.5b (``flash_prefill``)
   and (d) on mamba2-1.3b (48 layers, ``ssd_scan``), each against a B = 1
   greedy reference and a full-width prefill through the plain versions;
+  (d) also profiles one prefill for the ``ssd_scan`` kernels' share;
 
 and checks what comes out. Every phase is checked; any failure exits
 non-zero. The last line of standard output is
@@ -179,21 +180,42 @@ def flash_bound(q, k, window, q_offset):
 
 
 def ssd_bound(X, B_mat, cs):
-    """Least time (ms) for one ``ssd_scan`` call: X, dA, B, C read and Y
-    and the f32 state written once over the memory rate, or the
-    operations of the chunked scan over the f32 rate of the CUDA cores
-    (TF32 is off): per chunk and head, C B^T and its product with X over
-    the cs (cs + 1) / 2 pairs j <= i, and the carried state's two
-    [cs, N] x [N, P] products."""
+    """Least time (ms) for one ``ssd_scan`` call: the bytes it must move
+    (X, dA, B and C read, Y and the f32 state written, once each; B/C
+    ``[B, L, G, N]`` in their own type) over the memory rate, or its
+    operations over the rate of the unit that runs them, whichever is
+    larger. C B^T over the cs (cs + 1) / 2 pairs j <= i of a chunk is
+    needed once per (b, chunk, group), on the tensor cores when B/C are
+    bf16 (f32 CUDA cores otherwise). On f32 CUDA cores (TF32 is off), per
+    (b, chunk, head): the decayed scores times X over the same pairs,
+    the chunk's own state (2 cs N P) and, for every chunk after the
+    first (the state entering chunk 0 is zero), the carried state's
+    part of Y (2 cs N P)."""
     b, l, h, p = X.shape
-    n = B_mat.shape[-1]
+    g, n = B_mat.shape[-2:]
+    nc = l // cs
+    pairs = cs * (cs + 1) // 2
+    ops_cb = b * nc * g * 2 * pairs * n
+    ops_f32 = b * h * (nc * (2 * pairs * p + 2 * cs * n * p)
+                       + (nc - 1) * 2 * cs * n * p)
+    nbytes = X.element_size() * b * l * h * (2 * p + 1) \
+        + 2 * B_mat.element_size() * b * l * g * n + 4 * b * h * p * n
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = (ops_cb / PEAK_OPS_S[B_mat.dtype]
+             + ops_f32 / PEAK_OPS_S[torch.float32]) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ssd_bound_per_head(X, n, cs):
+    """The earlier per-head bound, kept so that rows can be compared
+    with those measured before B/C were read per group: B/C repeated
+    over the heads in X's type, and C B^T counted per head."""
+    b, l, h, p = X.shape
     pairs = cs * (cs + 1) // 2
     ops = b * h * (l // cs) * (2 * pairs * (n + p) + 4 * cs * n * p)
     nbytes = X.element_size() * b * l * h * (2 * p + 1 + 2 * n) \
         + 4 * b * h * p * n
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = ops / PEAK_OPS_S[torch.float32] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return max(nbytes / HBM_BYTES_S, ops / PEAK_OPS_S[torch.float32]) * 1e3
 
 
 def allclose_err(got, want, tol):
@@ -224,10 +246,11 @@ def build_kernels() -> None:
         for line in rep.splitlines():
             if "Used" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
-    # tensor-core proof: every bf16 attention kernel's SASS holds HMMA
+    # tensor-core proof: every bf16 attention kernel's SASS holds HMMA,
+    # and so does ssd_scan's C B^T for bf16 B/C, shared by its X types
     # (matched by mangled name; each pattern must match some kernel)
     seen = {"paged_attention_kernelI13__nv_bfloat16": 0,
-            "flash_prefill_bf16": 0}
+            "flash_prefill_bf16": 0, "ssd_cb_mma": 0}
     for name in _build.SOURCES:
         for fn, n in _build.sass_counts(name).items():
             log(f"[build] {name}: {n} HMMA in {fn[:110]}")
@@ -235,7 +258,7 @@ def build_kernels() -> None:
                 if pattern in fn:
                     seen[pattern] += 1
                     check(n > 0, f"{fn}: no HMMA, not on the tensor cores")
-    check(all(seen.values()), f"bf16 attention kernels not found: {seen}")
+    check(all(seen.values()), f"bf16 tensor-core kernels not found: {seen}")
 
 
 def kernel_case(dev, dtype, B, Q, ctx, g):
@@ -446,9 +469,10 @@ def long_context_rows(dev, timer, g) -> None:
 
 def prefill_kernels_phase(dev) -> dict:
     """(k) ``flash_prefill`` at qwen2-1.5b heads and ``ssd_scan`` at
-    mamba2-1.3b heads against their plain versions in both types; each
-    timed at its main-path shape and type beside its plain version, its
-    bound and (for attention) SDPA."""
+    mamba2-1.3b heads against their plain versions in both types (and
+    ``ssd_scan`` with B/C per group, bf16 beside f32 X); each timed at
+    its main-path shape and type beside its plain version, its bound and
+    (for attention) SDPA."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_prefill import flash_prefill
     from repro_torch.kernels.ssd_scan import ssd_scan
@@ -501,31 +525,47 @@ def prefill_kernels_phase(dev) -> dict:
                 rows["flash_prefill"] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
-    ssd_cases = [(1, 2048, 64, 64, 128, 256),   # b, l, h, p, n, chunk
-                 (1, 192, 64, 64, 128, 64)]     # a short prompt's chunk
-    for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype)[6:]
-        for b, l, h, p, n, cs in ssd_cases:
-            X = randn(b, l, h, p, scale=0.5).to(dtype)
-            dA = (-randn(b, l, h).abs() * 0.3).to(dtype)
-            Bm = randn(b, l, h, n, scale=0.5).to(dtype)
-            Cm = randn(b, l, h, n, scale=0.5).to(dtype)
-            Y, st = ssd_scan(X, dA, Bm, Cm, chunk=cs)
-            f32 = [t.float() for t in (X, dA, Bm, Cm)]
-            Yw, stw = ssd_chunked(*f32, cs)
-            torch.cuda.synchronize()
-            e_y, ok_y = allclose_err(Y, Yw, SSD_TOL[dtype])
-            e_s, ok_s = allclose_err(st, stw, SSD_TOL[dtype])
-            log(f"[kernels] {name}: ssd_scan L={l} chunk={cs}: Y "
-                f"max_abs_err {e_y}, state max_abs_err {e_s} (tol "
-                f"{SSD_TOL[dtype]} abs and rel)")
-            check(torch.isfinite(Y).all().item() and ok_y and ok_s,
-                  f"ssd_scan {name} L={l}: err {e_y} / {e_s}")
-            if dtype == torch.float32 and cs == 256:
-                # the model's type (the scan's inputs are f32) at 2048
-                ms = timer(lambda: ssd_scan(X, dA, Bm, Cm, chunk=cs))
-                plain_ms = timer(lambda: ssd_chunked(X, dA, Bm, Cm, cs))
-                bound_ms, bound_by = ssd_bound(X, Bm, cs)
+    f32, bf16 = torch.float32, torch.bfloat16
+    ssd_cases = [  # b, l, h, g, p, n, chunk, X/dA type, B/C type
+        (1, 2048, 64, 64, 64, 128, 256, f32, f32),  # the per-head form
+        (1, 192, 64, 64, 64, 128, 64, f32, f32),    # a short prompt's chunk
+        (1, 2048, 64, 64, 64, 128, 256, bf16, bf16),
+        (1, 192, 64, 64, 64, 128, 64, bf16, bf16),
+        (1, 2048, 64, 1, 64, 128, 256, f32, bf16),  # the model's form
+        (1, 512, 64, 8, 64, 128, 256, f32, bf16),   # 1 < G < H
+        (1, 512, 64, 8, 64, 128, 256, f32, f32),
+    ]
+    for b, l, h, grp, p, n, cs, xt, bt in ssd_cases:
+        name = f"X {str(xt)[6:]}, B/C {str(bt)[6:]} G={grp}"
+        X = randn(b, l, h, p, scale=0.5).to(xt)
+        dA = (-randn(b, l, h).abs() * 0.3).to(xt)
+        Bm = randn(b, l, grp, n, scale=0.5).to(bt)
+        Cm = randn(b, l, grp, n, scale=0.5).to(bt)
+        Y, st = ssd_scan(X, dA, Bm, Cm, chunk=cs)
+
+        def plain():  # the wrapper's plain version: B/C over the heads
+            return ssd_chunked(X.float(), dA.float(), *(
+                t.float().repeat_interleave(h // grp, dim=2)
+                for t in (Bm, Cm)), cs)
+        Yw, stw = plain()
+        torch.cuda.synchronize()
+        # a bf16 B/C value upcasts exactly: the tolerance is X's type's
+        e_y, ok_y = allclose_err(Y, Yw, SSD_TOL[xt])
+        e_s, ok_s = allclose_err(st, stw, SSD_TOL[xt])
+        log(f"[kernels] {name}: ssd_scan L={l} chunk={cs}: Y max_abs_err "
+            f"{e_y}, state max_abs_err {e_s} (tol {SSD_TOL[xt]} abs and "
+            "rel)")
+        check(torch.isfinite(Y).all().item() and ok_y and ok_s,
+              f"ssd_scan {name} L={l}: err {e_y} / {e_s}")
+        if l == 2048 and xt == f32:
+            ms = timer(lambda: ssd_scan(X, dA, Bm, Cm, chunk=cs))
+            plain_ms = timer(plain)
+            bound_ms, bound_by = ssd_bound(X, Bm, cs)
+            old_ms = ssd_bound_per_head(X, n, cs)
+            log(f"[kernels] ssd_scan {name} L={l}: {ms:.4f} ms (plain "
+                f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms by "
+                f"{bound_by}; earlier per-head bound {old_ms:.5f} ms)")
+            if grp == 1:  # the model's form is the row
                 rows["ssd_scan"] = dict(
                     max_abs_err=max(e_y, e_s), ms=ms, plain_ms=plain_ms,
                     bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
@@ -760,12 +800,22 @@ def prompts_for(cfg, rng, lens) -> dict:
             for i, n in enumerate(lens)}
 
 
+def device_us_by_kernel(prof) -> dict:
+    """{kernel name: device µs} summed over a ``torch.profiler`` run."""
+    from torch.autograd import DeviceType
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) \
+                + e.time_range.elapsed_us()
+    return by_name
+
+
 def profile_rounds(cfg, params, dev) -> None:
     """Where a fused round's time goes: the same trace once more under
     ``torch.profiler`` (its overhead stays out of the timings above).
     Prints the device's busy share of the wall time and the kernels
     that took the most device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving.paged_engine import PagedRealtimeEngine
@@ -778,11 +828,7 @@ def profile_rounds(cfg, params, dev) -> None:
                                       8, 24, 16)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) \
-                + e.time_range.elapsed_us()
+    by_name = device_us_by_kernel(prof)
     busy = sum(by_name.values())
     if not busy:
         log("[profile] the profiler saw no device activity: device busy "
@@ -794,6 +840,58 @@ def profile_rounds(cfg, params, dev) -> None:
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         log(f"[profile]   {us / 1e3:8.2f} ms  {100 * us / busy:5.1f}%  "
             f"{name[:90]}")
+
+
+def profile_prefill(cfg, params, dev, prompt, capacity) -> None:
+    """(d) Where a full-width mamba2 prefill's time goes. One B = 1
+    prefill of ``prompt`` unprofiled, timed on the host clock when it
+    returns (the host has enqueued every launch) and when the device is
+    done; then one under ``torch.profiler``. Prints the device ms of the
+    ``ssd_scan`` kernels and their share of the prefill's device time,
+    the kernels that took the most, and the host ops that took the most
+    host time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.model import init_cache, prefill
+    tok = torch.as_tensor(prompt, device=dev)[None, :]
+    prefill(cfg, params, tok, init_cache(cfg, 1, capacity, dev))
+    cache = init_cache(cfg, 1, capacity, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill(cfg, params, tok, cache)
+    t_host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t0
+    log(f"[profile] {cfg.name} {len(prompt)}-token prefill, unprofiled: "
+        f"returned to the host after {t_host * 1e3:.2f} ms, device done "
+        f"after {t_all * 1e3:.2f} ms")
+    cache = init_cache(cfg, 1, capacity, dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prefill(cfg, params, tok, cache)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name = device_us_by_kernel(prof)
+    busy = sum(by_name.values())
+    if not busy:
+        log("[profile] the profiler saw no device activity: the ssd "
+            "share of a prefill not measured")
+        return
+    ssd_us = sum(us for name, us in by_name.items() if "ssd_" in name)
+    log(f"[profile] {cfg.name} {len(prompt)}-token prefill under the "
+        f"profiler: {wall_us / 1e3:.2f} ms wall; device busy "
+        f"{busy / 1e3:.2f} ms = {100 * busy / wall_us:.1f}% of wall; "
+        f"ssd_scan kernels {ssd_us / 1e3:.3f} ms = "
+        f"{100 * ssd_us / busy:.1f}% of device busy")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"[profile]   {us / 1e3:8.3f} ms  {100 * us / busy:5.1f}%  "
+            f"{name[:90]}")
+    host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
+    for a in host[:8]:
+        log(f"[profile]   host {a.self_cpu_time_total / 1e3:8.3f} ms  "
+            f"{a.count:6d} calls  {a.key[:70]}")
 
 
 def step_phase(dev, cfg, params) -> None:
@@ -981,6 +1079,7 @@ def main() -> int:
                             32, 4096)
     add(counts, {"ssd_scan": len(prompts) * mcfg.num_layers})
     single_turn_check(mcfg, mparams, dev, prompts, out, 32, 4096)
+    profile_prefill(mcfg, mparams, dev, prompts["s0"], 4096)
     for name, n in total.items():
         check(n > 0, f"{name} never launched on a main path")
         rows[name]["launches"] = n

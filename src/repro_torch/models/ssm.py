@@ -153,20 +153,18 @@ def _project(params, cfg, u, conv_x_cache, conv_bc_cache):
 def mamba2_forward(params, cfg, u, *, plain: bool = False):
     """u [b, l, d] -> (y [b, l, d], (conv_x_c, conv_bc_c, ssm_state)),
     from empty caches and a zero state (prefill). The scan runs through
-    the ``ssd_scan`` kernel on the card; ``plain`` (tests and the chip
-    check only) runs ``ssd_chunked`` on any device, to hold the kernel
-    against it — never a fallback."""
+    the ``ssd_scan`` kernel on the card, with B and C per group in their
+    own type; ``plain`` (tests and the chip check only) runs
+    ``ssd_chunked`` on B and C repeated over the heads in f32, on any
+    device, to hold the kernel against it — never a fallback."""
     s = cfg.ssm
     b, l, d = u.shape
     d_in = d * s.expand
     nheads = d_in // s.head_dim
     z, x, B, C, dt, cxc, cbc = _project(params, cfg, u, None, None)
     x = x.reshape(b, l, nheads, s.head_dim)
-    rep = nheads // s.num_groups
-    Bh = B.reshape(b, l, s.num_groups, s.state_dim).repeat_interleave(
-        rep, dim=2)
-    Ch = C.reshape(b, l, s.num_groups, s.state_dim).repeat_interleave(
-        rep, dim=2)
+    Bg = B.reshape(b, l, s.num_groups, s.state_dim)
+    Cg = C.reshape(b, l, s.num_groups, s.state_dim)
     A = -torch.exp(params["A_log"])                              # [h]
     chunk = min(s.chunk_size, l)
     pad = (-l) % chunk
@@ -175,14 +173,20 @@ def mamba2_forward(params, cfg, u, *, plain: bool = False):
         # state is the state after the last real token
         x = F.pad(x, (0, 0, 0, 0, 0, pad))
         dt = F.pad(dt, (0, 0, 0, pad))
-        Bh = F.pad(Bh, (0, 0, 0, 0, 0, pad))
-        Ch = F.pad(Ch, (0, 0, 0, 0, 0, pad))
+        Bg = F.pad(Bg, (0, 0, 0, 0, 0, pad))
+        Cg = F.pad(Cg, (0, 0, 0, 0, 0, pad))
     X = x.float() * dt[..., None]
-    args = (X, dt * A, Bh.float(), Ch.float())
+    dA = dt * A
     if plain:
-        Y, ssm_state = ssd_chunked(*args, chunk)
+        rep = nheads // s.num_groups
+        Y, ssm_state = ssd_chunked(
+            X, dA, Bg.repeat_interleave(rep, dim=2).float(),
+            Cg.repeat_interleave(rep, dim=2).float(), chunk)
     else:
-        Y, ssm_state = ssd_scan(*(t.contiguous() for t in args), chunk=chunk)
+        # B = bc[..., :gn] is a strided view: the kernel reads it copied
+        Y, ssm_state = ssd_scan(X.contiguous(), dA.contiguous(),
+                                Bg.contiguous(), Cg.contiguous(),
+                                chunk=chunk)
     Y = Y[:, :l]
     x = x[:, :l]
     Y = Y + params["D"][:, None] * x.float()

@@ -88,13 +88,15 @@ def flash_case(seed, B, Hq, Hkv, Sq, Skv, D):
                            (B, Hkv, Skv, D)))
 
 
-def ssd_case(seed, b, l, h, p, n):
-    """The JAX sweep's inputs: X, B, C ~ N(0, 0.25), dA = -0.3 |N(0, 1)|."""
+def ssd_case(seed, b, l, h, p, n, g=None):
+    """The JAX sweep's inputs: X, B, C ~ N(0, 0.25), dA = -0.3 |N(0, 1)|;
+    B and C per group, [b, l, g, n] (g = h by default)."""
     rng = np.random.default_rng(seed)
+    g = h if g is None else g
     X = rng.standard_normal((b, l, h, p)).astype(np.float32) * 0.5
     dA = -np.abs(rng.standard_normal((b, l, h))).astype(np.float32) * 0.3
-    B = rng.standard_normal((b, l, h, n)).astype(np.float32) * 0.5
-    C = rng.standard_normal((b, l, h, n)).astype(np.float32) * 0.5
+    B = rng.standard_normal((b, l, g, n)).astype(np.float32) * 0.5
+    C = rng.standard_normal((b, l, g, n)).astype(np.float32) * 0.5
     return X, dA, B, C
 
 
@@ -105,10 +107,15 @@ FLASH_CUDA_SHAPES = [          # B, Hq, Hkv, Sq, Skv, D, window, q_offset
     (1, 8, 2, 33, 97, 64, None, 64),
     (1, 4, 2, 50, 130, 64, 32, 80),
 ]
-SSD_CUDA_SHAPES = [            # b, l, h, p, n, chunk
-    (1, 512, 4, 64, 128, 256),
-    (2, 96, 3, 32, 16, 32),
-    (1, 200, 2, 16, 128, 40),
+SSD_CUDA_SHAPES = [            # b, l, h, g, p, n, chunk
+    (1, 512, 4, 4, 64, 128, 256),
+    (2, 96, 3, 3, 32, 16, 32),
+    (1, 200, 2, 2, 16, 128, 40),
+    (1, 512, 8, 1, 64, 128, 256),   # one group (mamba2-1.3b's)
+    (2, 96, 6, 2, 32, 16, 32),      # 1 < G < H, N = 16
+    (1, 200, 4, 2, 16, 128, 40),    # 1 < G < H, chunk no multiple of 16
+    (1, 256, 4, 1, 64, 128, 256),   # L = chunk: no recurrence
+    (1, 80, 2, 1, 96, 64, 80),      # P past one 64-column tile
 ]
 
 
@@ -136,15 +143,24 @@ def test_cuda_ssd_scan_matches_plain(dtype):
     from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.models.ssm import ssd_chunked
     tol = 4 * TOL[dtype]             # the recurrence accumulates over l
-    for b, l, h, p, n, chunk in SSD_CUDA_SHAPES:
-        X, dA, B, C = (torch.from_numpy(a).to("cuda", TDT[dtype]) for a in
-                       ssd_case(0, b, l, h, p, n))
-        Y, st = ssd_scan(X, dA, B, C, chunk=chunk)
-        assert Y.dtype == X.dtype and st.dtype == torch.float32
-        f32 = [t.float() for t in (X, dA, B, C)]
-        for Yw, stw in (ssd_chunked(*f32, chunk), tref.ssd_scan_ref(*f32)):
-            torch.testing.assert_close(Y.float(), Yw, rtol=tol, atol=tol)
-            torch.testing.assert_close(st, stw, rtol=tol, atol=tol)
+    # B/C in either type whatever X's (bf16 beside f32 X is the model's
+    # form): the plain versions take them repeated over the heads in f32,
+    # which a bf16 value reaches exactly, so the tolerance is X's
+    for b, l, h, g, p, n, chunk in SSD_CUDA_SHAPES:
+        for bc in ("float32", "bfloat16"):
+            X, dA, B, C = (torch.from_numpy(a).to("cuda") for a in
+                           ssd_case(0, b, l, h, p, n, g))
+            X, dA = X.to(TDT[dtype]), dA.to(TDT[dtype])
+            B, C = B.to(TDT[bc]), C.to(TDT[bc])
+            Y, st = ssd_scan(X, dA, B, C, chunk=chunk)
+            assert Y.dtype == X.dtype and st.dtype == torch.float32
+            f32 = [t.float() for t in (X, dA)] + [
+                t.float().repeat_interleave(h // g, dim=2) for t in (B, C)]
+            for Yw, stw in (ssd_chunked(*f32, chunk),
+                            tref.ssd_scan_ref(*f32)):
+                torch.testing.assert_close(Y.float(), Yw, rtol=tol,
+                                           atol=tol)
+                torch.testing.assert_close(st, stw, rtol=tol, atol=tol)
 
 
 def _long_case(dev, dtype, B, Q, Hq, Hkv, D, page, ctx, seed=0):

@@ -176,6 +176,55 @@ def test_ssd_scan_plain_matches_jax(b, l, h, p, n, chunk, dtype):
                                        rtol=tol, atol=tol)
 
 
+# B/C per group: one group (mamba2-1.3b's), 1 < G < H, and G = H
+SSD_GROUP_SHAPES = [  # b, l, h, g, p, n, chunk
+    (1, 64, 4, 1, 8, 8, 16),
+    (2, 96, 6, 2, 16, 16, 32),
+    (1, 256, 4, 1, 64, 128, 64),   # production-shaped head, one group
+    (2, 128, 6, 3, 16, 8, 32),
+    (1, 32, 2, 2, 8, 16, 32),      # G = H, L = chunk
+]
+SSD_TYPES = [("float32", "float32"), ("float32", "bfloat16"),
+             ("bfloat16", "bfloat16"),
+             ("bfloat16", "float32")]     # (X and dA, B and C)
+
+
+@pytest.mark.parametrize("x_dtype,bc_dtype", SSD_TYPES)
+@pytest.mark.parametrize("b,l,h,g,p,n,chunk", SSD_GROUP_SHAPES)
+def test_ssd_scan_groups_plain_matches_jax(b, l, h, g, p, n, chunk,
+                                           x_dtype, bc_dtype):
+    """The wrapper's extended contract: B/C [b, l, g, n] read by head h
+    as group h // (h / g), in their own type (bf16 beside f32 X is the
+    model's form), against the Pallas kernel and the JAX model's
+    ``ssd_chunked`` fed the same values repeated over the heads in f32
+    (a bf16 value upcasts exactly, so the tolerance is X's type's)."""
+    X, dA, B, C = ssd_case(4, b, l, h, p, n, g)
+    (jX, tX), (jdA, tdA) = _both(X, x_dtype), _both(dA, x_dtype)
+    tB, tC = (torch.from_numpy(a).to(TDT[bc_dtype]) for a in (B, C))
+    Y, st = ssd_scan(tX, tdA, tB, tC, chunk=chunk)
+    assert Y.dtype == TDT[x_dtype] and Y.shape == (b, l, h, p)
+    assert st.dtype == torch.float32 and st.shape == (b, h, p, n)
+    jB, jC = (jnp.repeat(jnp.asarray(t.float().numpy()), h // g, axis=2)
+              for t in (tB, tC))
+    j32 = [jnp.asarray(x, jnp.float32) for x in (jX, jdA)] + [jB, jC]
+    tol = 4 * TOL[x_dtype]
+    for want_y, want_st in (
+            j_ssd_scan(jX, jdA, jB, jC, chunk=chunk, interpret=True),
+            j_ssd_chunked(*j32, chunk)):
+        np.testing.assert_allclose(Y.float().numpy(),
+                                   np.asarray(want_y, np.float32),
+                                   rtol=tol, atol=tol)
+        np.testing.assert_allclose(st.numpy(), np.asarray(want_st),
+                                   rtol=tol, atol=tol)
+
+
+def test_ssd_scan_rejects_groups_that_do_not_divide_heads():
+    X, dA, B, C = (torch.from_numpy(a) for a in
+                   ssd_case(0, 1, 16, 6, 8, 8, 4))
+    with pytest.raises(ValueError, match="groups"):
+        ssd_scan(X, dA, B, C, chunk=16)
+
+
 def test_new_wrappers_reject_devices_without_a_kernel():
     q = torch.empty((1, 2, 4, 64), device="meta")
     with pytest.raises(ValueError, match="no kernel"):

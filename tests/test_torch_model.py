@@ -11,6 +11,8 @@ through ``flash_prefill`` (its plain version on the CPU) where the
 reference uses its masked einsum attention; the ssm prefill scans
 through ``ssd_scan`` (the model's ``ssd_chunked``).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,11 +30,15 @@ LOGIT_TOL = 1e-4
 CACHE_TOL = 1e-5
 
 
-def _pair(name, seed=0, **kw):
+def _pair(name, seed=0, ssm=None, **kw):
+    """``ssm``: fields of the mixer config to replace in both."""
     jcfg = j_reduced(j_get_config(name), layers=2, d_model=64,
                      vocab=331).replace(**kw)
     tcfg = reduced(get_config(name), layers=2, d_model=64,
                    vocab=331).replace(**kw)
+    if ssm:
+        jcfg = jcfg.replace(ssm=dataclasses.replace(jcfg.ssm, **ssm))
+        tcfg = tcfg.replace(ssm=dataclasses.replace(tcfg.ssm, **ssm))
     rng = np.random.default_rng(seed)
     jp = jax.tree.map(
         lambda a: (np.asarray(a) + 0.1 * rng.standard_normal(a.shape))
@@ -103,6 +109,18 @@ def test_ssm_prefill_decode_match_jax(S, seq_lens):
     """Lengths 21 and 7 are no multiple of the reduced chunk (16): the
     padding path of ``mamba2_forward`` runs."""
     pair = _pair("mamba2-1.3b")
+    _check(_run_both(pair, S, 64, seq_lens, steps=4))
+
+
+@pytest.mark.parametrize("S,seq_lens", [(21, (21, 9)), (32, (32,))])
+def test_ssm_groups_prefill_decode_match_jax(S, seq_lens):
+    """Two groups of B/C over the reduced model's eight heads: the port
+    hands ``ssd_scan`` B and C per group and the reference repeats them
+    over the heads, so the logits agree only if head h reads group
+    h // 4 in both."""
+    pair = _pair("mamba2-1.3b", ssm=dict(num_groups=2))
+    assert pair[2].ssm.num_groups == 2
+    assert pair[2].d_model * pair[2].ssm.expand // pair[2].ssm.head_dim == 8
     _check(_run_both(pair, S, 64, seq_lens, steps=4))
 
 
