@@ -16,6 +16,13 @@ read just after:
   and (d) on mamba2-1.3b (48 layers, ``ssd_scan``), each against a B = 1
   greedy reference and a full-width prefill through the plain versions;
   (d) also profiles one prefill for the ``ssd_scan`` kernels' share;
+- (e) the paged engine's feature planes on qwen2-1.5b: (e1) eight
+  sessions sharing a 250-token system prompt on the prefix plane (a
+  copy-on-write of the shared tail page included) against the
+  ``prefix_cache=False`` twin, (e2) phase (b)'s trace with three-token
+  n-gram drafts against its K = 0 tokens, (e3) the int8 wire tier's
+  quality gate and the quantizer's bound on real offloaded pages; the
+  twins' streams must agree in f32, where only a fault can part them;
 
 and checks what comes out. Every phase is checked; any failure exits
 non-zero. The last line of standard output is
@@ -580,12 +587,27 @@ def prefill_kernels_phase(dev) -> dict:
     return rows
 
 
-def mixed_trace(eng, rng, n_sessions: int, max_new: int, chunk: int):
+def round_grants(eng, chunk: int, decode_grant: int) -> dict:
+    """One round's grants for every live slot: up to ``chunk`` prompt
+    tokens for a PREFILL slot, ``decode_grant`` for a decode slot."""
+    from repro_torch.core.session import Phase
+    grants = {}
+    for s in eng.active():
+        slot = next(k for k, v in eng.slot_state.items() if v is s)
+        r = s.request
+        grants[slot] = min(chunk, r.prompt_len - r.prefilled) \
+            if r.phase == Phase.PREFILL else decode_grant
+    return grants
+
+
+def mixed_trace(eng, rng, n_sessions: int, max_new: int, chunk: int,
+                decode_grant: int = 1):
     """submit_turn/run_round with chunked prefill grants interleaved with
     decode: half the sessions start at once, the rest a few rounds
-    later, so prefill chunks share rounds with decoding slots. Returns
-    (per-session tokens, rounds, fed tokens, seconds)."""
-    from repro_torch.core.session import Phase
+    later, so prefill chunks share rounds with decoding slots. A decode
+    slot is granted ``decode_grant`` tokens (1 + K carries a spec
+    engine's draft budget). Returns (per-session tokens, rounds, granted
+    tokens, seconds)."""
     V = eng.cfg.vocab_size
     lens = rng.integers(64, 320, size=n_sessions)
     prompts = [rng.integers(0, V, size=int(n)) for n in lens]
@@ -599,12 +621,7 @@ def mixed_trace(eng, rng, n_sessions: int, max_new: int, chunk: int):
             for i in range(n_sessions // 2, n_sessions):
                 slots[eng.submit_turn(f"s{i}", prompts[i], max_new)] = \
                     f"s{i}"
-        grants = {}
-        for s in eng.active():
-            slot = next(k for k, v in eng.slot_state.items() if v is s)
-            r = s.request
-            grants[slot] = min(chunk, r.prompt_len - r.prefilled) \
-                if r.phase == Phase.PREFILL else 1
+        grants = round_grants(eng, chunk, decode_grant)
         fed += sum(grants.values())
         eng.run_round(grants)
         rounds += 1
@@ -968,6 +985,270 @@ def step_phase(dev, cfg, params) -> None:
             check(err <= tol, f"{what} step {dtype}: {err} > {tol}")
 
 
+# ======================================================================
+# (e) the paged engine's feature planes
+# ======================================================================
+SYSTEM_TOKENS = 250         # 15 full pages of 16 and a 10-token tail
+
+
+def drive_rounds(eng, chunk: int, decode_grant: int = 1,
+                 check_every: bool = False) -> int:
+    """Run the engine's live slots to completion with
+    ``round_grants``. Returns the rounds run."""
+    rounds = 0
+    while eng.active():
+        eng.run_round(round_grants(eng, chunk, decode_grant))
+        if check_every:
+            eng.check_invariants()
+        rounds += 1
+        check(rounds < 2000, "rounds did not finish")
+    return rounds
+
+
+def prefix_trace(cfg, params, dev, prefix: bool, n_sessions=8, new=24):
+    """(e1) ``n_sessions`` sessions share one ``SYSTEM_TOKENS``-token
+    system prompt, each with its own 24-120-token suffix, two turns of
+    ``new`` tokens each. Session 0's first turn closes (and registers
+    its pages) before the others arrive; they arrive together, then
+    every session takes a second turn. ``check_invariants`` after every
+    round. Returns (histories, engine, expected prefix-hit tokens)."""
+    from repro_torch.serving.paged_engine import PagedRealtimeEngine
+    rng = np.random.default_rng(SEED + 5)
+    V = cfg.vocab_size
+    system = rng.integers(0, V, size=SYSTEM_TOKENS)
+    first = [np.concatenate([system, rng.integers(0, V, size=int(n))])
+             for n in rng.integers(24, 121, size=n_sessions)]
+    second = [rng.integers(0, V, size=int(n))
+              for n in rng.integers(8, 33, size=n_sessions)]
+    eng = PagedRealtimeEngine(cfg, params, slots=n_sessions, page_size=16,
+                              pages_per_seq=32, device=dev,
+                              prefix_cache=prefix)
+    bad = []
+    eng.logit_tap = lambda sid, lg: \
+        bad.append(sid) if not np.isfinite(lg).all() else None
+    eng.submit_turn("p0", first[0], new)
+    drive_rounds(eng, 16, check_every=True)
+    # what a lookup of each later prompt matches in p0's registered
+    # chain: the common prefix, less the last prompt token (it always
+    # prefills)
+    chain = eng.sessions["p0"].token_ids
+    expect = 0
+    for p in first[1:]:
+        n = 0
+        while n < min(len(p), len(chain)) and int(p[n]) == chain[n]:
+            n += 1
+        expect += min(n, len(p) - 1)
+    for i in range(1, n_sessions):
+        eng.submit_turn(f"p{i}", first[i], new)
+    drive_rounds(eng, 16, check_every=True)
+    for i in range(n_sessions):
+        eng.submit_turn(f"p{i}", second[i], new)
+    drive_rounds(eng, 16, check_every=True)
+    torch.cuda.synchronize()
+    check(not bad, f"prefix={prefix}: non-finite logits for {bad}")
+    hist = {sid: s.history for sid, s in eng.sessions.items()}
+    check(all(len(h) == 2 and all(len(t) == new for t in h)
+              for h in hist.values()),
+          f"prefix={prefix}: turns did not run to their cap")
+    return hist, eng, expect
+
+
+def f32_twin(cfg, params):
+    """The same weights in f32, to tell bf16 rounding (another product
+    shape rounds differently) from a fault of a plane."""
+    return (cfg.replace(dtype="float32", param_dtype="float32"),
+            cast_params(params, torch.float32))
+
+
+def prefix_phase(cfg, params, dev) -> None:
+    """(e1) the prefix plane against its ``prefix_cache=False`` twin."""
+    t0 = time.perf_counter()
+    hist, eng, expect = prefix_trace(cfg, params, dev, True)
+    pc = eng.prefix_cache
+    log(f"[feature] (e1) prefix plane: hits {pc.hits}, hit tokens "
+        f"{pc.hit_tokens} (prompts imply {expect}), copy-on-write "
+        f"{eng.cow_copies}, peak shared pages {eng.peak_shared_pages}, "
+        f"{eng.fused_launches} fused launches")
+    check(pc.hits >= 7, f"prefix hits {pc.hits} < 7")
+    check(pc.hit_tokens == expect and expect >= 7 * SYSTEM_TOKENS,
+          f"hit tokens {pc.hit_tokens}, prompts imply {expect}")
+    check(eng.cow_copies >= 1, "no copy-on-write happened")
+    check(eng.peak_shared_pages > 0, "no page was ever shared")
+    hits = sum(t["prefix_hit_tokens"] for s in eng.sessions.values()
+               for t in s.turn_stats)
+    check(hits == expect, f"turn stats report {hits} hit tokens")
+    ctl, ceng, _ = prefix_trace(cfg, params, dev, False)
+    check(ceng.cow_copies == 0 and ceng.peak_shared_pages == 0,
+          "the control shared pages")
+    same = sum(hist[s] == ctl[s] for s in hist)
+    log(f"[feature] (e1) sessions with the control's tokens in bf16: "
+        f"{same}/{len(hist)} (another product shape may round a near tie "
+        f"the other way)")
+    c32, p32 = f32_twin(cfg, params)
+    h32, _, _ = prefix_trace(c32, p32, dev, True)
+    ctl32, _, _ = prefix_trace(c32, p32, dev, False)
+    same32 = sum(h32[s] == ctl32[s] for s in h32)
+    log(f"[feature] (e1) f32: sessions with the control's tokens "
+        f"{same32}/{len(h32)}; {time.perf_counter() - t0:.1f} s")
+    check(h32 == ctl32, "f32 prefix plane's tokens differ from its "
+          "control's")
+    del p32
+    torch.cuda.empty_cache()
+
+
+def spec_trace(cfg, params, dev, spec: int, proposer=None):
+    """(e2) phase (b)'s trace on the fused plane, decode slots granted
+    1 + ``spec`` tokens (drafts from ``proposer``, the n-gram one by
+    default). Returns (tokens, rounds, seconds, engine)."""
+    from repro_torch.serving.paged_engine import PagedRealtimeEngine
+    eng = PagedRealtimeEngine(cfg, params, slots=8, page_size=16,
+                              pages_per_seq=32, device=dev,
+                              spec_decode=spec, proposer=proposer)
+    bad = []
+    eng.logit_tap = lambda sid, lg: \
+        bad.append(sid) if not np.isfinite(lg).all() else None
+    toks, rounds, _, secs = mixed_trace(eng, np.random.default_rng(SEED),
+                                        8, 24, 16, decode_grant=1 + spec)
+    eng.check_invariants()
+    check(not bad, f"spec={spec}: non-finite logits for {bad}")
+    check(all(len(t) == 24 for t in toks.values()),
+          f"spec={spec}: turns did not run to their cap")
+    return toks, rounds, secs, eng
+
+
+def spec_phase(cfg, params, dev, fused_b: dict, K: int = 3) -> None:
+    """(e2) spec_decode=K with the n-gram proposer against phase (b)'s
+    K = 0 fused tokens."""
+    from repro_torch.serving.spec_decode import NGramProposer
+
+    class TimedNGram(NGramProposer):
+        """The default proposer, with the host seconds it takes."""
+        calls, seconds = 0, 0.0
+
+        def propose(self, history, k):
+            t = time.perf_counter()
+            out = super().propose(history, k)
+            self.seconds += time.perf_counter() - t
+            self.calls += 1
+            return out
+
+    t0 = time.perf_counter()
+    timed = TimedNGram()
+    toks, rounds, secs, eng = spec_trace(cfg, params, dev, K, timed)
+    emitted = sum(len(t) for t in toks.values())
+    d, a, r = eng.spec_drafted, eng.spec_accepted, eng.spec_rejected
+    log(f"[feature] (e2) spec K={K} (n-gram): {rounds} rounds in "
+        f"{secs:.2f} s = {secs / rounds * 1e3:.2f} ms/round (K = 0, phase "
+        f"(b): {fused_b['rounds']} rounds, "
+        f"{fused_b['secs'] / fused_b['rounds'] * 1e3:.2f} ms/round); "
+        f"drafted {d}, accepted {a}, rejected {r}, accept rate "
+        f"{a / max(d, 1):.3f}; {emitted} tokens in {eng.fused_launches} "
+        f"launches = {emitted / eng.fused_launches:.3f} tokens/launch; "
+        f"{timed.calls} proposals took {timed.seconds * 1e3:.2f} ms of "
+        f"host time")
+    check(d > 0, "the n-gram proposer drafted nothing")
+    check(a + r == d, f"accepted {a} + rejected {r} != drafted {d}")
+    same = sum(toks[s] == fused_b["tokens"][s] for s in toks)
+    log(f"[feature] (e2) sessions with the K = 0 tokens in bf16: "
+        f"{same}/{len(toks)} (the verify step unembeds [B*Q, d], another "
+        f"product shape)")
+    c32, p32 = f32_twin(cfg, params)
+    t32, _, _, e32 = spec_trace(c32, p32, dev, K)
+    b32, _, _, _ = spec_trace(c32, p32, dev, 0)
+    same32 = sum(t32[s] == b32[s] for s in t32)
+    log(f"[feature] (e2) f32: sessions with the K = 0 tokens "
+        f"{same32}/{len(t32)} (drafted {e32.spec_drafted}, accepted "
+        f"{e32.spec_accepted}); {time.perf_counter() - t0:.1f} s")
+    check(t32 == b32, "f32 spec tokens differ from the K = 0 plane's")
+    check(e32.spec_accepted + e32.spec_rejected == e32.spec_drafted,
+          "f32 spec counters do not balance")
+    del p32
+    torch.cuda.empty_cache()
+    # the timed run above was the first at the verify step's shapes;
+    # warm, in turns, the trace's seconds on each plane (the same 192
+    # tokens out of each)
+    runs = []
+    for k in (0, K, K, 0):
+        _, r, sec, _ = spec_trace(cfg, params, dev, k)
+        runs.append(f"K={k} {sec:.3f} s ({r} rounds, "
+                    f"{sec / r * 1e3:.2f} ms/round)")
+    log(f"[feature] (e2) warm, in turns: {'; '.join(runs)}")
+
+
+def int8_phase(cfg, params, dev) -> None:
+    """(e3) the int8 wire tier: the quality gate on the card (the fp32
+    control bit exact, the int8 candidate's flips and logit MSE beside
+    the reference's tolerance), and the quantizer's bound on real
+    offloaded full-width bf16 pages."""
+    from repro_torch.kvcache.quant import BLOCK, QuantizedPage, decode_page
+    from repro_torch.serving.paged_engine import PagedRealtimeEngine
+    from repro_torch.serving.quality_gate import (QualityTolerance,
+                                                  run_quality_gate)
+    t0 = time.perf_counter()
+    ctl = run_quality_gate(cfg, params, kv_quant="fp32", device=dev)
+    log(f"[feature] (e3) fp32 control: flips {ctl.token_flips}/"
+        f"{ctl.tokens_compared}, logit MSE {ctl.logit_mse!r} over "
+        f"{ctl.logit_positions} positions, reloaded pages "
+        f"{ctl.reloaded_pages}")
+    check(ctl.token_flips == 0 and ctl.logit_mse == 0.0,
+          "the fp32 control is not bit exact")
+    check(ctl.reloaded_pages > 0, "the fp32 gate reloaded no pages")
+    q8 = run_quality_gate(cfg, params, kv_quant="int8", device=dev)
+    tol = QualityTolerance()
+    log(f"[feature] (e3) int8: flip rate {q8.token_flip_rate:.4f} "
+        f"({q8.token_flips}/{q8.tokens_compared}; tolerance "
+        f"{tol.max_token_flip_rate}), logit MSE {q8.logit_mse:.3e} "
+        f"(tolerance {tol.max_logit_mse}), reloaded pages "
+        f"{q8.reloaded_pages}, wire bytes saved {q8.wire_bytes_saved:.0f};"
+        f" within the tolerance: {q8.within(tol)}")
+    check(q8.reloaded_pages > 0, "the int8 gate reloaded no pages")
+    check(q8.wire_bytes_saved > 0, "the int8 gate saved no wire bytes")
+    # real pages: snapshot a session's pages, offload them through the
+    # int8 tier, and hold the host copies to the quantizer's bound
+    eng = PagedRealtimeEngine(cfg, params, slots=2, page_size=16,
+                              pages_per_seq=16, num_pages=64,
+                              kv_quant="int8", device=dev)
+    eng.add_session("q", np.random.default_rng(SEED + 9).integers(
+        0, cfg.vocab_size, size=100), max_new_tokens=8)
+    eng.run_to_completion()
+    seq = eng.pool.seq("q")
+    orig = {li: torch.stack([eng.k_pages[:, p], eng.v_pages[:, p]]).cpu()
+            for li, p in enumerate(seq.pages)}
+    check(eng.kv.evict(3, eng.clock.now()) == 3, "eviction fell short")
+    eng.flush_transfers()
+    check(len(seq.offloaded) == 3, "pages did not reach the host")
+    worst = over = total = 0
+    for li, enc in seq.offloaded.items():
+        check(isinstance(enc, QuantizedPage), "host copy not quantized")
+        x = orig[li].float().reshape(-1)
+        n = x.numel()
+        scale = enc.scales.repeat_interleave(BLOCK)[:n]
+        deq = (enc.q.float() * enc.scales[:, None]).reshape(-1)[:n]
+        back = decode_page(enc)
+        check(back.dtype == torch.bfloat16, f"decoded as {back.dtype}")
+        check(bool(((deq - x).abs()
+                    <= scale / 2 + 2.0 ** -23 * x.abs()).all()),
+              f"page {li}: dequantization off by more than scale/2")
+        check(torch.equal(back.reshape(-1).view(torch.int16),
+                          deq.to(torch.bfloat16).view(torch.int16)),
+              f"page {li}: decode is not the bf16 rounding of q * scale")
+        err = (back.reshape(-1).float() - x).abs()
+        worst = max(worst, (err / scale).max().item())
+        over += int((err > scale / 2).sum())
+        total += n
+    log(f"[feature] (e3) {len(seq.offloaded)} offloaded full-width bf16 "
+        f"pages ({total} elements): |q * scale - x| <= scale/2 for every "
+        f"element; after the bf16 rounding of decode, {over} elements "
+        f"({100 * over / total:.2f}%) exceed scale/2, the worst "
+        f"{worst:.3f} scale; {time.perf_counter() - t0:.1f} s")
+    eng.start_turn("q", np.random.default_rng(SEED + 10).integers(
+        0, cfg.vocab_size, size=8), max_new_tokens=4)
+    eng.run_to_completion()
+    eng.check_invariants()
+    check(not seq.offloaded and eng.kv.reloaded_blocks >= 3,
+          "the int8 pages did not come back")
+
+
 def cast_params(tree, dtype, key=None):
     """Every leaf to ``dtype`` (no copy where it already is), except the
     mixer's leaves that stay f32 at any type."""
@@ -1055,6 +1336,17 @@ def main() -> int:
                             cfg, params, dev, prompts, 32, 4096)
     add(counts, {"flash_prefill": len(prompts) * cfg.num_layers})
     single_turn_check(cfg, params, dev, prompts, out, 32, 4096)
+    # (e) the paged engine's feature planes at full width, each part
+    # with its own counts: every one runs the fused kernel
+    t_e = time.perf_counter()
+    for tag, fn, args in (
+            ("prefix plane (e1)", prefix_phase, (cfg, params, dev)),
+            ("spec plane (e2)", spec_phase,
+             (cfg, params, dev, eng["planes"]["fused"])),
+            ("int8 wire tier (e3)", int8_phase, (cfg, params, dev))):
+        _, counts = main_path(tag, fn, *args)
+        add(counts, {"paged_prefill_attention": 0})
+    log(f"[feature] phase (e): {time.perf_counter() - t_e:.1f} s")
     del eng, params
     # (d) mamba2-1.3b at full width; prompts no multiple of its chunk
     t0 = time.perf_counter()

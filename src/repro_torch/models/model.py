@@ -33,7 +33,7 @@ F32_LEAVES = ("A_log", "D", "dt_bias")
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue 1 item 9)")
+        f"{what} is not ported yet (ROADMAP.md queue 1 item 6)")
 
 
 def _check_ported(cfg) -> None:
@@ -155,7 +155,7 @@ def _logits(cfg, params, x):
 def _mlp_block(cfg, lp, x):
     if "moe" in lp:
         raise NotImplementedError(
-            "moe layers are not ported (ROADMAP queue 1 item 9)")
+            "moe layers are not ported (ROADMAP queue 1 item 6)")
     h = L.rms_norm(x, lp["ln2"], cfg.rms_eps)
     return x + L.mlp_apply(lp["mlp"], h, cfg.mlp_kind)
 

@@ -29,9 +29,24 @@ Turn 0 on the per-token plane (``fused_step=False``) is the
 reference's dense graft: one B=1 ring-cache ``prefill`` through the
 ``flash_prefill`` kernel, copied into the session's pages.
 
+The three feature planes are the reference's, each with its twin
+control:
+
+- ``prefix_cache=True`` (DESIGN.md §13): a radix index over committed
+  pages; a new session attaches to its prompt's longest cached prefix
+  (refcounted shared pages) and prefills from the first uncached token.
+  A write into a shared page first copies it (copy-on-write, one
+  in-place ``index_copy_`` of the page across all layers).
+- ``kv_quant="int8"`` (DESIGN.md §14): host copies travel and rest in
+  the int8 block-quantized wire format (``kvcache/quant.py``).
+- ``spec_decode=K`` (DESIGN.md §16, fused plane only): a decode slot
+  feeds ``[pending, d_1..d_K]`` drafts from a proposer as one fused row;
+  the verify step's per-position argmax accepts the longest matching
+  prefix, so the committed stream is the greedy one.
+
 Out of this slice (each raises ``NotImplementedError`` naming its
-ROADMAP item): ``mesh``, ``prefix_cache``, ``spec_decode``,
-``kv_quant="int8"`` and the cross-replica migration methods.
+ROADMAP item): ``mesh``, the moe and vlm families and the cross-replica
+migration methods.
 """
 from __future__ import annotations
 
@@ -53,6 +68,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.paged_attention import paged_attention, \
     paged_prefill_attention
 from repro_torch.kvcache.paged import OutOfPages, PagedPool
+from repro_torch.kvcache.prefix_cache import PrefixCache
 from repro_torch.kvcache.quant import KVWireCodec
 from repro_torch.models import layers as L
 from repro_torch.models.model import _embed, _logits, _mlp_block, \
@@ -61,6 +77,7 @@ from repro_torch.serving.block_tables import BatchTables, \
     FusedBatchTables, LayerStackedPages, assemble, assemble_fused
 from repro_torch.serving.engine import RoundLimitExceeded, _StepClock, \
     schedule_round
+from repro_torch.serving.spec_decode import build_proposer
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -102,7 +119,8 @@ def paged_decode_step(cfg, params, tokens, positions, k_pages, v_pages,
 
 def paged_fused_step(cfg, params, tokens, positions, k_pages, v_pages,
                      block_tables, q_start, q_lens, write_pages,
-                     write_slots, *, plain: bool = False):
+                     write_slots, *, plain: bool = False,
+                     spec: bool = False):
     """One fused round: up to Q consecutive tokens per batch row in one
     pass over the layers.
 
@@ -110,7 +128,11 @@ def paged_fused_step(cfg, params, tokens, positions, k_pages, v_pages,
     q_start/q_lens [B] i32 (first absolute position / valid tokens per
     row — 0 marks a padding row); k_pages/v_pages [L, P+1, page, Hkv,
     hd], written in place; block_tables [B, pps] i32. Returns the logits
-    [B, V] f32 of each row's last valid token.
+    [B, V] f32 of each row's last valid token; with ``spec`` (the
+    speculative verify variant, DESIGN.md §16) it returns ``(logits,
+    outs)`` where ``outs`` [B, Q] int64 is the argmax after each
+    position — fed tokens are ``[pending, d_1..d_m]``, so ``outs[b, j]
+    == tokens[b, j+1]`` accepts draft j+1.
 
     Per layer the whole chunk's K/V is scattered into the pages first,
     then every query token attends causally over history + chunk prefix
@@ -130,11 +152,19 @@ def paged_fused_step(cfg, params, tokens, positions, k_pages, v_pages,
         a = attend(q.contiguous(), kc, vc, block_tables, q_start, q_lens)
         x = x + L.attn_output(lp["attn"], a)
         x = _mlp_block(cfg, lp, x)
+    last = (q_lens.long() - 1).clamp(min=0)
+    rows = torch.arange(x.shape[0], device=x.device)
+    if spec:
+        # the verify step consumes every position's argmax, so the full
+        # [B, Q, V] logits materialise here and the argmax runs on the
+        # device; only outs and the last-valid rows cross to the host.
+        # The [B*Q, d] unembed may round differently from the non-spec
+        # [B, d] one (another product shape), never beyond float rounding
+        full = _logits(cfg, params, x)                  # [B, Q, V]
+        return full[rows, last], full.argmax(-1)
     # only each row's last valid token's logits are consumed; slice
     # before the unembed so the step never materialises [B, Q, V]
-    last = (q_lens.long() - 1).clamp(min=0)
-    xl = x[torch.arange(x.shape[0], device=x.device), last]
-    return _logits(cfg, params, xl[:, None])[:, 0]
+    return _logits(cfg, params, x[rows, last][:, None])[:, 0]
 
 
 def _q_bucket(n: int) -> int:
@@ -190,9 +220,10 @@ class PagedRealtimeEngine:
                  fused_step: bool = True,
                  prefix_cache: bool = False,
                  kv_quant: str = "fp32",
-                 spec_decode: int = 0):
+                 spec_decode: int = 0,
+                 proposer=None):
         if cfg.family in ("moe", "vlm"):
-            raise _not_ported(f"the {cfg.family} family", "9")
+            raise _not_ported(f"the {cfg.family} family", "6")
         assert cfg.family == "dense" and cfg.mla is None \
             and cfg.sliding_window is None, \
             "paged engine serves global-attention KV families"
@@ -200,13 +231,9 @@ class PagedRealtimeEngine:
             "the physical data plane needs an offload tier ('none' " \
             "discards pages; use the simulator for that baseline)"
         if mesh is not None:
-            raise _not_ported("mesh= (the sharded page plane)", "7")
-        if prefix_cache:
-            raise _not_ported("prefix_cache=True", "4")
-        if spec_decode:
-            raise _not_ported("spec_decode>0", "4")
-        if kv_quant == "int8":
-            raise _not_ported(f"kv_quant={kv_quant!r}", "4")
+            raise _not_ported("mesh= (the sharded page plane)", "3")
+        # KV wire format (DESIGN.md §14): int8 block-quantizes every host
+        # copy on the offload path; fp32 is the bit-exact control
         self.codec = KVWireCodec(kv_quant)
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
@@ -265,12 +292,29 @@ class PagedRealtimeEngine:
             pending_offload=self.transfer.pending_offload_pages)
         self.preloader = SpeechPreloader(self.kv, self.monitor,
                                          enabled=preload)
+        # speculative multi-token decode (DESIGN.md §16): a decode slot
+        # feeds [pending, d_1..d_K] drafts as one fused row and the
+        # verify step's per-position argmax accepts the longest
+        # matching prefix — lossless by construction; spec_decode=0
+        # keeps the one-token plane as the differential control
+        assert spec_decode >= 0
+        assert spec_decode == 0 or fused_step, \
+            "spec_decode verifies drafts in one fused launch; it " \
+            "cannot run on the per-token control plane " \
+            "(fused_step=False)"
+        self.spec_decode = int(spec_decode)
+        self.proposer = None
+        if self.spec_decode > 0:
+            self.proposer = build_proposer(
+                proposer if proposer is not None else "ngram")
         # prefill_chunk clamps to the self-scheduled round budget
-        # (= slots tokens) exactly as the gateway clamps its own
+        # (= slots*(1+K) tokens) exactly as the gateway clamps its own;
+        # decode grants become "up to 1+K" draft budgets
         self.scheduler = scheduler or UrgencyScheduler(
             SchedulerConfig(), self.monitor, stage="thinker",
             kv_occupancy=self.kv.occupancy,
-            prefill_chunk=max(1, slots), decode_chunk=1)
+            prefill_chunk=max(1, slots),
+            decode_chunk=1 + self.spec_decode)
 
         self.sessions: Dict[str, PagedSession] = {}
         self.slot_state: Dict[int, Optional[PagedSlot]] = {
@@ -278,14 +322,32 @@ class PagedRealtimeEngine:
         self._step_fn = paged_decode_step
         # the fused token-budget plane: one step per round, C-token
         # prefill chunks included. fused_step=False keeps the per-token
-        # plane as the differential control.
+        # plane as the differential control. With speculation on, every
+        # fused round runs the verify variant (prefill rows ignore the
+        # per-position argmaxes).
         self.fused_step = fused_step
         self._fused_fn = paged_fused_step if fused_step else None
+        # shared-prefix KV (DESIGN.md §13): a radix index over committed
+        # pages + refcounted attach/COW in the pool; prefix_cache=False
+        # keeps private pages as the differential twin
+        self.prefix_cache = None
+        if prefix_cache:
+            self.prefix_cache = PrefixCache(page_size)
+            self.kv.set_cache_hooks(reclaim=self._reclaim_cached,
+                                    reclaimable=self._cached_reclaimable)
+        self._pending_hit: Dict[str, int] = {}
         # telemetry
         self.reload_wall_s: List[float] = []   # measured host->device time
         self.offload_events: List[tuple] = []
         self.pressure_holds = 0                # feeds held mid-round
         self.fused_launches = 0                # fused-plane step launches
+        self.peak_shared_pages = 0             # max pages with refcount>1
+        self.cow_copies = 0                    # copy-on-write page copies
+        # speculation accounting (accepted + rejected == drafted, always)
+        self.spec_drafted = 0                  # draft tokens verified
+        self.spec_accepted = 0                 # drafts matching argmax
+        self.spec_rejected = 0                 # drafts rolled back
+        self.spec_rounds = 0                   # verify rows with drafts
         # quality-gate tap: when set, called as logit_tap(sid, logits)
         # for every fed row (fused rows report last-valid-token logits —
         # the ones the argmax commits)
@@ -321,6 +383,13 @@ class PagedRealtimeEngine:
             assert dropped == len(cancel_lis), (sid, cancel_lis)
             self.pool.cancel_loading(sid, cancel_lis)
         if offload_lis:
+            if self.prefix_cache is not None:
+                # about to leave HBM: forget these pages (and their
+                # unreachable subtrees) in the radix index first — the
+                # never-offload-shared rule is then an assert, not a
+                # hope (rc>1 pages were excluded by evictable_suffix)
+                seq = self.pool.seq(sid)
+                self._forget_cached([seq.pages[li] for li in offload_lis])
             self.pool.mark_offloading(sid, offload_lis)
             self.transfer.submit_offload(sid, offload_lis)
             if not self.async_transfers:
@@ -442,6 +511,160 @@ class PagedRealtimeEngine:
         self.transfer.drain_offloads_until(
             self.clock.now(), lambda: self.pool.free_pages >= need)
 
+    # ---------------------------------------------------- shared prefix
+    # (DESIGN.md §13.) The radix cache holds NON-refcount references:
+    # registering marks pages `cache_held` in the pool without touching
+    # refcounts, so `sum(refcounts) == live block-table references`
+    # stays the conservation invariant. Charging: every allocated page
+    # bills exactly one accountant — its owner session (kv.hbm_blocks)
+    # or, once the owner released/COW'd it away, the prefix cache
+    # (kv.cached_blocks, pool.page_owner[p] is None).
+
+    def _refresh_shared_pins(self) -> None:
+        """Recompute every session's shared-pinned block count (own
+        resident pages some other session references — never
+        offloadable) after any refcount 1<->2+ transition. Sessions per
+        engine are few; recomputing all of them keeps every call site
+        trivially correct."""
+        if self.prefix_cache is None:
+            return
+        for sid, kvs in self.kv.sessions.items():
+            kvs.shared_pinned_blocks = self.pool.shared_charged_pages(sid)
+        self.peak_shared_pages = max(self.peak_shared_pages,
+                                     self.pool.shared_pages())
+
+    def _attach_prefix(self, sess: PagedSession,
+                       prompt: np.ndarray) -> np.ndarray:
+        """Session birth: walk the radix index for the prompt's longest
+        cached prefix and attach to it — the block table points at the
+        shared pages, kv_len skips ahead, and prefill starts at the
+        first uncached token (the fused kernel's per-row q_start
+        renders from any offset; no kernel math changes). Returns the
+        remaining (uncached) prompt."""
+        if self.prefix_cache is None or sess.kv_len > 0:
+            return prompt
+        sid = sess.session_id
+        matched, phys = self.prefix_cache.lookup(prompt)
+        # the last prompt token always prefills: its logits are the
+        # turn's first output token
+        matched = min(matched, int(prompt.shape[0]) - 1)
+        if matched <= 0:
+            return prompt
+        n_phys = self.pool.pages_for(matched)
+        self.pool.attach_prefix(sid, phys[:n_phys], matched)
+        sess.kv_len = matched
+        sess.token_ids = [int(t) for t in prompt[:matched]]
+        kvs = self.kv.session(sid)
+        kvs.total_blocks = n_phys
+        kvs.shared_blocks = n_phys      # charged to owners / the cache
+        kvs.hbm_blocks = 0
+        self._pending_hit[sid] = matched
+        self.prefix_cache.hits += 1
+        self.prefix_cache.hit_tokens += matched
+        self._refresh_shared_pins()
+        self._sync_page_counts(sid)
+        return prompt[matched:]
+
+    def _ensure_writable(self, sid: str) -> None:
+        """Copy-on-write before a write lands: the next token's target
+        page may be shared (an attached partial tail, or this session's
+        own committed tail another session attached to). Allocate a
+        private copy, repoint, copy the bytes. Only the FIRST page of a
+        write region can be shared — everything past it is freshly
+        allocated. Raises OutOfPages recoverably (same contract as
+        _grow). The callers run it before the round's block tables are
+        assembled, so the round's writes and reads see the new page."""
+        if self.prefix_cache is None:
+            return
+        sess = self.sessions[sid]
+        s = self.pool.seqs.get(sid)
+        if s is None:
+            return
+        li = sess.kv_len // self.page_size
+        if li >= len(s.pages):
+            return
+        phys = s.pages[li]
+        if phys < 0 or self.pool.refcount[phys] <= 1:
+            return
+        now = self.clock.now()
+        if not self.kv.try_allocate_working(1, now):
+            raise OutOfPages(f"{sid}: no page free for copy-on-write")
+        self._demand_free_pages(1)
+        old, new, was_owner = self.pool.cow(sid, li)
+        self.kv.release_working(1)
+        kvs = self.kv.session(sid)
+        if was_owner:
+            # the old page stays for its sharers, now charged to the
+            # cache; our new private copy replaces it 1:1 in hbm
+            self.kv.cached_blocks += 1
+        else:
+            # an attached page became a private one
+            kvs.shared_blocks -= 1
+            kvs.hbm_blocks += 1
+        # in place: the steps write through k_pages[i] views of this one
+        # store, so it is never rebound
+        dst = torch.tensor([new], dtype=torch.int64, device=self.device)
+        self.k_pages.index_copy_(1, dst, self.k_pages[:, old:old + 1])
+        self.v_pages.index_copy_(1, dst, self.v_pages[:, old:old + 1])
+        self.cow_copies += 1
+        self._refresh_shared_pins()
+
+    def _register_prefix(self, sid: str) -> None:
+        """Turn close: index the session's committed chain — full pages
+        as interior radix nodes, the partially-filled tail as this
+        node's partial child. Newly indexed pages become `cache_held`
+        (kept allocated even at refcount 0 until forgotten/reclaimed);
+        charging is unchanged — this session still owns them."""
+        sess = self.sessions[sid]
+        s = self.pool.seqs.get(sid)
+        if s is None or sess.kv_len <= 0:
+            return
+        assert len(sess.token_ids) == sess.kv_len, \
+            f"{sid}: token history {len(sess.token_ids)} != " \
+            f"kv_len {sess.kv_len}"
+        now = self.clock.now()
+        newly = self.prefix_cache.register(
+            sess.token_ids, s.pages,
+            est=self.kv.next_use_estimate(sid, now),
+            protect=self.kv.session(sid).protected_until)
+        self.pool.cache_held.update(newly)
+
+    def _forget_cached(self, phys: List[int]) -> None:
+        """Drop pages (and their now-unreachable radix subtrees) from
+        the index before they offload; orphans whose last reference was
+        the index free immediately."""
+        dropped = self.prefix_cache.forget_phys(phys)
+        self.kv.cached_blocks -= self.pool.cache_release(dropped)
+
+    def _reclaim_cached(self, n: int, now: float) -> int:
+        """KVManager cache hook: free up to n orphaned cached pages
+        (leaves-first, farthest banked next-use first). Returns blocks
+        freed; the manager adjusts cached_blocks."""
+        phys = self.prefix_cache.reclaim(n, now, self.pool.refcount)
+        freed = self.pool.cache_release(phys)
+        assert freed == len(phys), (phys, freed)
+        return freed
+
+    def _cached_reclaimable(self, now: float) -> int:
+        return self.prefix_cache.reclaimable(now, self.pool.refcount)
+
+    def _bank_detach(self, sid: str, now: float) -> None:
+        """A sharer is leaving (hangup): bank its Eq.4 next-use
+        estimate and protection TTL on every indexed/shared page it
+        references — reclaim order for the eventual orphans is
+        min-over-sharers next-use (last detacher wins) with protection
+        extended to the max over sharers' TTLs."""
+        s = self.pool.seqs.get(sid)
+        if s is None:
+            return
+        held = [p for p in s.pages
+                if p >= 0 and (p in self.pool.cache_held
+                               or self.pool.refcount[p] > 1)]
+        if held:
+            self.prefix_cache.on_detach(
+                held, est=self.kv.next_use_estimate(sid, now),
+                protect=self.kv.session(sid).protected_until)
+
     def _grow(self, sid: str, token_capacity: int, *,
               best_effort: bool = False) -> bool:
         """Own enough pages for token_capacity tokens; KVManager evicts
@@ -482,8 +705,8 @@ class PagedRealtimeEngine:
         """Turn 0, synchronous path: prefill the prompt into pool pages
         before returning; returns slot id."""
         sess = self._prep_first_turn(session_id)
-        return self._begin_turn(sess, np.asarray(prompt, np.int32),
-                                max_new_tokens, first=True)
+        prompt = self._attach_prefix(sess, np.asarray(prompt, np.int32))
+        return self._begin_turn(sess, prompt, max_new_tokens, first=True)
 
     def start_turn(self, session_id: str, prompt: np.ndarray,
                    max_new_tokens: int) -> int:
@@ -511,6 +734,7 @@ class PagedRealtimeEngine:
         prompt = np.asarray(prompt, np.int32)
         if session_id not in self.sessions:
             sess = self._prep_first_turn(session_id)
+            prompt = self._attach_prefix(sess, prompt)
         else:
             sess = self._prep_next_turn(session_id)
         if request is not None:
@@ -608,7 +832,7 @@ class PagedRealtimeEngine:
             req.max_new_tokens = max_new_tokens
         req.reload_stall_s = sess.reload_stall_s
         req.reload_off_path_s = sess.reload_off_path_s
-        req.prefix_hit_tokens = 0          # no prefix cache on this slice
+        req.prefix_hit_tokens = self._pending_hit.pop(sid, 0)
         sess.turn_stats.append({
             "turn": sess.turn_index,
             "context_tokens": req.context_len,
@@ -630,6 +854,7 @@ class PagedRealtimeEngine:
         assert slot is not None, "no free decode slot"
         req = self._make_request(sess, prompt, max_new_tokens)
         self._grow(sid, sess.kv_len + req.prompt_len)
+        self._ensure_writable(sid)
         if self.fused_step:
             # turn 0 (the former dense-prefill graft) and turn-N
             # extension share the one fused path (DESIGN.md §11)
@@ -679,7 +904,7 @@ class PagedRealtimeEngine:
         last token's logits are the first output token."""
         logits = self._run_chunk_rows(
             {slot: (sess.session_id,
-                    np.asarray(prompt, np.int32))})[slot]
+                    np.asarray(prompt, np.int32))})[0][slot]
         sess.kv_len += int(prompt.shape[0])
         sess.token_ids += [int(t) for t in prompt]
         self.clock.tick()
@@ -757,8 +982,18 @@ class PagedRealtimeEngine:
         # hangup mid-transfer leaks nothing
         self.transfer.cancel_session(session_id)
         self.preloader.forget_session(session_id)
-        self.pool.release(session_id)
+        if self.prefix_cache is not None:
+            self._bank_detach(session_id, self.clock.now())
+        rep = self.pool.release(session_id)
+        if self.prefix_cache is not None:
+            # own pages surviving via sharers/the index re-charge to
+            # the cache; cache-charged pages whose last reference died
+            # here freed with the release
+            self.kv.cached_blocks += rep["orphaned"]
+            self.kv.cached_blocks -= rep["freed_orphan"]
         self.kv.release_session(session_id)
+        if self.prefix_cache is not None:
+            self._refresh_shared_pins()
         self.sessions[session_id].ended = True
         self.monitor.on_page_movement(session_id, resident=0, offloaded=0)
 
@@ -792,7 +1027,7 @@ class PagedRealtimeEngine:
             return []
         sched_slots, grants = schedule_round(
             self.scheduler, self.kv, self.clock, self.slot_state, act,
-            self.slots,
+            self.slots * (1 + self.spec_decode),
             block_size=self.page_size)
         if not sched_slots:
             return []
@@ -855,13 +1090,29 @@ class PagedRealtimeEngine:
                 # a zero grant is "not scheduled this round" on both
                 # planes — the planes' bit-exactness contract covers
                 # every run_round input, not just scheduler outputs
-                feeds[i] = (s.session_id,
-                            np.asarray([s.pending_token], np.int32))
+                toks = [s.pending_token]
+                if self.spec_decode > 0:
+                    # the grant is an "up to 1+K" draft budget: the
+                    # proposer fills as much of it as it can guess,
+                    # capped so accepted tokens can never overshoot the
+                    # turn's generation cap (frontier/cap accounting
+                    # counts accepted tokens only)
+                    m = min(self.spec_decode, c - 1,
+                            r.max_new_tokens - r.generated - 1)
+                    if m > 0:
+                        if hasattr(self.proposer, "session_id"):
+                            self.proposer.session_id = s.session_id
+                        hist = self.sessions[s.session_id].token_ids \
+                            + [s.pending_token]
+                        toks += [int(t) for t in
+                                 self.proposer.propose(hist, m)[:m]]
+                feeds[i] = (s.session_id, np.asarray(toks, np.int32))
         for i in list(feeds):
             sid, toks = feeds[i]
             sess = self.sessions[sid]
             try:
                 self._grow(sid, sess.kv_len + len(toks))
+                self._ensure_writable(sid)   # COW a shared write target
             except OutOfPages:
                 # allocation failure mid-round: admission accounted
                 # blocks that interaction events (speech protection, a
@@ -890,7 +1141,7 @@ class PagedRealtimeEngine:
             xfer_budget -= self.drain_transfers(1)
         feeds = self._round_feeds(chunks)
         if feeds:
-            out = self._run_chunk_rows(feeds)
+            out, outs = self._run_chunk_rows(feeds)
             for i, (sid, toks) in feeds.items():
                 s = self.slot_state[i]
                 sess = self.sessions[sid]
@@ -917,20 +1168,46 @@ class PagedRealtimeEngine:
                             self.clock.now() - sess.turn_arrival
                         events[i].append(("token", tok))
                     continue
-                # decode: the row fed exactly [pending] and emits its one
-                # argmax
-                sess.kv_len += 1
-                sess.token_ids.append(int(toks[0]))
-                tok = int(np.argmax(out[i]))
-                r.generated += 1
-                s.pending_token = tok
-                if r.generated < r.max_new_tokens:
-                    s.tokens.append(tok)
-                    events[i].append(("token", tok))
+                # decode: without speculation the row fed exactly
+                # [pending] and emits its one argmax; with it the row
+                # fed [pending, d_1..d_m] and the verify step's
+                # per-position argmaxes accept the longest matching
+                # draft prefix (the committed stream is exactly the
+                # greedy one)
+                if outs is None:
+                    accepted, emit = 0, [int(np.argmax(out[i]))]
                 else:
-                    r.state = RequestState.FINISHED
-                    self._close_turn(i, aborted=False)
-                    events[i].append(("finished", r.generated))
+                    row = outs[i]
+                    accepted = 0
+                    while accepted < n - 1 \
+                            and int(toks[accepted + 1]) \
+                            == int(row[accepted]):
+                        accepted += 1
+                    emit = [int(row[j]) for j in range(accepted + 1)]
+                    if n > 1:
+                        self.spec_rounds += 1
+                        self.spec_drafted += n - 1
+                        self.spec_accepted += accepted
+                        self.spec_rejected += (n - 1) - accepted
+                # commit pending + accepted drafts; rejected KV rolls
+                # back (length clamp — pages stay owned, the garbage
+                # slots are never attended and are overwritten before
+                # any future attend; _close_turn's trim reclaims)
+                sess.kv_len += 1 + accepted
+                sess.token_ids += [int(t) for t in toks[:1 + accepted]]
+                if 1 + accepted < n:
+                    self.pool.rollback(sid, sess.kv_len)
+                for tok in emit:
+                    r.generated += 1
+                    s.pending_token = tok
+                    if r.generated < r.max_new_tokens:
+                        s.tokens.append(tok)
+                        events[i].append(("token", tok))
+                    else:
+                        r.state = RequestState.FINISHED
+                        self._close_turn(i, aborted=False)
+                        events[i].append(("finished", r.generated))
+                        break
         if xfer_budget > 0:
             self.drain_transfers(xfer_budget)
         return events
@@ -966,6 +1243,7 @@ class PagedRealtimeEngine:
                 sess = self.sessions[s.session_id]
                 try:
                     self._grow(s.session_id, sess.kv_len + 1)
+                    self._ensure_writable(s.session_id)
                 except OutOfPages:
                     # mid-chunk allocation failure: admission accounted
                     # blocks that interaction events (speech protection,
@@ -1058,12 +1336,13 @@ class PagedRealtimeEngine:
                 self.logit_tap(sid, logits[i])
         return {i: logits[i] for i in feeds}
 
-    def _run_chunk_rows(self, feeds: Dict[int, tuple]) \
-            -> Dict[int, np.ndarray]:
+    def _run_chunk_rows(self, feeds: Dict[int, tuple]) -> tuple:
         """Run one fused step with ``feeds[row] = (sid, tokens)`` — up
         to Q consecutive tokens per row, padded (rows and token slots
-        alike) onto the scratch page. Returns each row's last valid
-        token's logits."""
+        alike) onto the scratch page. Returns ``(logits, outs)``: each
+        row's last valid token's logits, plus each row's per-position
+        argmaxes when the engine runs the speculative verify variant
+        (None on the non-spec plane)."""
         q_tokens = _q_bucket(max(len(t) for _, t in feeds.values()))
         rows: List[Optional[tuple]] = [None] * self.slots
         tokens = np.zeros((self.slots, q_tokens), np.int64)
@@ -1074,18 +1353,26 @@ class PagedRealtimeEngine:
             self.pool, rows, q_tokens, self.pages_per_seq,
             self.scratch_page)
         i64 = torch.int64
-        logits = self._fused_fn(
+        out = self._fused_fn(
             self.cfg, self.params, self._tensor(tokens),
             self._tensor(tabs.positions), self.k_pages, self.v_pages,
             self._tensor(tabs.block_tables), self._tensor(tabs.q_start),
             self._tensor(tabs.q_lens), self._tensor(tabs.write_pages, i64),
-            self._tensor(tabs.write_slots, i64))
+            self._tensor(tabs.write_slots, i64),
+            spec=self.spec_decode > 0)
+        out_rows = None
+        if self.spec_decode > 0:
+            logits, outs = out
+            outs = outs.cpu().numpy()
+            out_rows = {i: outs[i] for i in feeds}
+        else:
+            logits = out
         self.fused_launches += 1
         logits = logits.cpu().numpy()
         if self.logit_tap is not None:
             for i, (sid, _) in feeds.items():
                 self.logit_tap(sid, logits[i])
-        return {i: logits[i] for i in feeds}
+        return {i: logits[i] for i in feeds}, out_rows
 
     def _close_turn(self, slot: int, *, aborted: bool) -> None:
         s = self.slot_state[slot]
@@ -1096,6 +1383,8 @@ class PagedRealtimeEngine:
         grown = len(self.pool.seq(sid).pages) - sess.base_pages
         self.kv.release_working(grown + trimmed)
         self.kv.commit_turn(sid, sess.kv_len, now)
+        if self.prefix_cache is not None:
+            self._register_prefix(sid)
         if not aborted:
             self.monitor.on_response_complete(sid)
         sess.history.append(list(s.tokens))
@@ -1126,20 +1415,38 @@ class PagedRealtimeEngine:
     def check_invariants(self) -> None:
         """Pool/accounting consistency (exercised by tests)."""
         from collections import Counter
-        # every allocated page is referenced exactly once (no prefix
-        # cache on this slice, so no sharing and no cache-held pages)
+        # refcount conservation: every allocated page's refcount equals
+        # its live block-table references, and zero-ref pages are
+        # exactly the orphans the radix index holds
         refs = Counter(p for s in self.pool.seqs.values()
                        for p in s.pages if p >= 0)
         for p, c in self.pool.refcount.items():
             assert refs.get(p, 0) == c, \
                 f"page {p}: refcount {c} != {refs.get(p, 0)} references"
+            if c == 0:
+                assert p in self.pool.cache_held, \
+                    f"page {p}: zero refs and not cache-held — leaked"
         allocated = set(self.pool.refcount)
         assert set(refs).issubset(allocated)
         assert allocated.isdisjoint(self.pool.free), "free+allocated page"
         assert len(allocated) + self.pool.free_pages == self.num_pages
-        assert self.kv.cached_blocks == 0 \
-            and not self.pool.cache_held \
-            and all(c == 1 for c in self.pool.refcount.values())
+        assert self.pool.cache_held.issubset(allocated)
+        if self.prefix_cache is not None:
+            assert set(self.prefix_cache.by_phys) == self.pool.cache_held
+            assert self.kv.cached_blocks == sum(
+                1 for p in allocated
+                if self.pool.page_owner[p] is None), \
+                f"cached_blocks {self.kv.cached_blocks} != owner-less pages"
+            for sid in self.pool.seqs:
+                kvs = self.kv.sessions.get(sid)
+                if kvs is not None:
+                    assert kvs.shared_pinned_blocks == \
+                        self.pool.shared_charged_pages(sid), \
+                        f"{sid}: stale shared-pin count"
+        else:
+            assert self.kv.cached_blocks == 0 \
+                and not self.pool.cache_held \
+                and all(c == 1 for c in self.pool.refcount.values())
         # copy-then-free: an offloading page is accounting-evicted but
         # physically still owned until its chunk drains
         offloading = sum(len(s.offloading)

@@ -274,3 +274,167 @@ def test_cuda_bf16_kernels_match_f32_plain():
         want = tref.flash_prefill_ref(q.float(), k.float(), v.float(),
                                       window=window, q_offset=q_offset)
         torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+
+
+# ======================================================================
+# the feature planes' uses of the fused kernel and the page store
+# ======================================================================
+def _small_model(dtype):
+    """A reduced qwen2-1.5b on the card with head dim 32 (one the kernel
+    is built for), random weights from a seed."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.model import init_params
+    cfg = reduced(get_config("qwen2-1.5b"), layers=2, d_model=128,
+                  vocab=331).replace(dtype=dtype, param_dtype=dtype)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    return cfg, params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_spec_verify_step_matches_plain(dtype, monkeypatch):
+    """``paged_fused_step(spec=True)`` on draft-verify rows of 1 + K = 4
+    tokens (and a prefill row, a padding row) against its ``plain=True``
+    twin on the same store: the last-valid logits within the step
+    tolerance of ``chip_smoke.py`` (f32 1e-5, bf16 3e-2 of the logits'
+    scale), the per-position argmaxes equal wherever the plain top two
+    are further apart than that, and the last-valid logits those of the
+    non-spec step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the H100)")
+    from repro_torch.serving.paged_engine import paged_fused_step
+    cfg, params = _small_model(dtype)
+    dev = torch.device("cuda")
+    B, Q, page, pps = 4, 4, 8, 6
+    P = B * pps
+    shape = (cfg.num_layers, P + 1, page, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    kp = torch.zeros(shape, dtype=TDT[dtype], device=dev)
+    vp = torch.zeros_like(kp)
+    g = torch.Generator(device=dev).manual_seed(1)
+    bt = torch.randperm(P, generator=g, device=dev).reshape(B, pps).int()
+
+    def tables(start, n, q):
+        t = torch.arange(q, device=dev)
+        pos = start[:, None] + t[None, :]
+        live = t[None, :] < n[:, None]
+        pg = torch.where(live, bt.long().gather(
+            1, (pos // page).clamp(max=pps - 1)), P)
+        sl = torch.where(live, pos % page, t[None, :] % page)
+        return pos.int(), pg, sl
+
+    ctx = torch.tensor([21, 9, 30, 0], device=dev)
+    C = 32
+    toks = torch.randint(0, cfg.vocab_size, (B, C), generator=g, device=dev)
+    pos, pg, sl = tables(torch.zeros_like(ctx), ctx, C)
+    paged_fused_step(cfg, params, toks, pos, kp, vp, bt,
+                     torch.zeros_like(ctx).int(), ctx.int(), pg, sl)
+    n = torch.tensor([4, 4, 3, 0], device=dev)      # verify, prefill, pad
+    pos, pg, sl = tables(ctx, n, Q)
+    toks = torch.randint(0, cfg.vocab_size, (B, Q), generator=g, device=dev)
+    args = (toks, pos, kp, vp, bt, ctx.int(), n.int(), pg, sl)
+    k0, v0 = kp.clone(), vp.clone()
+    logits, outs = paged_fused_step(cfg, params, *args, spec=True)
+    kp.copy_(k0), vp.copy_(v0)
+    want_l, want_o = paged_fused_step(cfg, params, *args, spec=True,
+                                      plain=True)
+    kp.copy_(k0), vp.copy_(v0)
+    plain_last = paged_fused_step(cfg, params, *args)
+    live = n > 0
+    scale = want_l[live].abs().max().item()
+    tol = (1e-5 if dtype == "float32" else 3e-2) * scale
+    assert outs.shape == (B, Q) and logits.shape == (B, cfg.vocab_size)
+    assert (logits[live] - want_l[live]).abs().max().item() <= tol
+    assert (logits[live] - plain_last[live]).abs().max().item() <= tol
+    # per-position logits of the plain twin, to find clear argmaxes
+    kp.copy_(k0), vp.copy_(v0)
+    import repro_torch.serving.paged_engine as pe
+    full = []
+    unembed = pe._logits
+    monkeypatch.setattr(pe, "_logits", lambda c, p, x: full.append(
+        unembed(c, p, x)) or full[-1])
+    paged_fused_step(cfg, params, *args, spec=True, plain=True)
+    top2 = full[0].topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * tol
+    valid = torch.arange(Q, device=dev)[None, :] < n[:, None]
+    sel = clear & valid
+    if dtype == "float32":
+        assert sel.sum().item() > valid.sum().item() // 2
+    assert torch.equal(outs[sel], want_o[sel])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_fused_kernel_aliased_block_tables(dtype):
+    """Rows whose block tables point at the same physical pages (a
+    shared prefix, then private pages; one row a full alias of another
+    at another q_start) at Q = 4 against the plain version; rows with
+    the same table, queries and start agree bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the H100)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    B, Q, Hq, Hkv, D, page, pps = 5, 4, 12, 2, 128, 16, 6
+    P = 4 * pps
+    shared = rng.permutation(P)[:3]
+    own = rng.permutation(np.setdiff1d(np.arange(P), shared))
+    bt = np.empty((B, pps), np.int32)
+    for b in range(3):                 # three rows attach the prefix
+        bt[b, :3] = shared
+        bt[b, 3:] = own[b * 3:(b + 1) * 3]
+    bt[3] = bt[0]                      # a full alias of row 0
+    bt[4] = bt[1]
+    qs = np.array([45, 40, 33, 60, 40], np.int32)
+    ql = np.array([4, 4, 1, 4, 4], np.int32)
+    q = rng.standard_normal((B, Q, Hq, D)).astype(np.float32)
+    q[4] = q[1]                        # row 4 repeats row 1 exactly
+    kp = rng.standard_normal((P + 1, page, Hkv, D)).astype(np.float32)
+    vp = rng.standard_normal((P + 1, page, Hkv, D)).astype(np.float32)
+    q, kp, vp = (torch.from_numpy(x).to(dev, TDT[dtype])
+                 for x in (q, kp, vp))
+    bt, qs, ql = (torch.from_numpy(x).to(dev) for x in (bt, qs, ql))
+    got = paged_prefill_attention(q, kp, vp, bt, qs, ql)
+    want = tref.paged_prefill_attention_ref(q, kp, vp, bt, qs, ql)
+    _valid_close(got.float().cpu(), want.float().cpu(), ql.cpu(),
+                 TOL[dtype])
+    assert torch.equal(got[4], got[1])
+
+
+@pytest.mark.cuda
+def test_cuda_cow_copy_and_prefix_plane():
+    """The copy-on-write page copy on a CUDA store (one in-place
+    ``index_copy_`` along the page axis, source and destination in the
+    same tensor) leaves the copy equal to its source and every other
+    page untouched; and the prefix plane on the card (f32), which
+    attaches a partial tail page and copies it on write, gives its
+    ``prefix_cache=False`` twin's tokens."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the H100)")
+    from repro_torch.serving.paged_engine import PagedRealtimeEngine
+    store = torch.randn(2, 9, 4, 2, 32, device="cuda").to(torch.bfloat16)
+    before = store.clone()
+    view = store[0]                      # the steps write through views
+    store.index_copy_(1, torch.tensor([6], device="cuda"), store[:, 2:3])
+    assert torch.equal(store[:, 6], before[:, 2])
+    keep = [i for i in range(9) if i != 6]
+    assert torch.equal(store[:, keep], before[:, keep])
+    assert view.data_ptr() == store.data_ptr()
+    cfg, params = _small_model("float32")
+    rng = np.random.default_rng(0)
+    fam = rng.integers(0, cfg.vocab_size, size=21)
+    tails = [rng.integers(0, cfg.vocab_size, size=3) for _ in range(3)]
+    hist = {}
+    for prefix in (True, False):
+        eng = PagedRealtimeEngine(cfg, params, slots=2, page_size=8,
+                                  pages_per_seq=8, num_pages=32,
+                                  prefix_cache=prefix, device="cuda")
+        for i, t in enumerate(tails):
+            eng.add_session(f"s{i}", np.concatenate([fam, t]),
+                            max_new_tokens=6)
+            eng.run_to_completion()
+            eng.check_invariants()
+        hist[prefix] = {s: x.history for s, x in eng.sessions.items()}
+        if prefix:
+            assert eng.cow_copies >= 1 and eng.prefix_cache.hits == 2
+    assert hist[True] == hist[False]

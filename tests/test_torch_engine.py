@@ -324,10 +324,7 @@ def test_bf16_offload_reload_bit_exact():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mesh=object()), "item 7"),
-    (dict(prefix_cache=True), "item 4"),
-    (dict(spec_decode=2), "item 4"),
-    (dict(kv_quant="int8"), "item 4"),
+    (dict(mesh=object()), "item 3"),
 ])
 def test_out_of_slice_options_raise(tiny, kw, item):
     _, _, tcfg, tp = tiny

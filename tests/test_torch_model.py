@@ -179,12 +179,12 @@ def test_params_from_numpy_keeps_mixer_f32_leaves(param_dtype):
 def test_unported_model_options_raise(kw):
     cfg = reduced(get_config("qwen2-1.5b"), layers=2, d_model=64,
                   vocab=331).replace(**kw)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         TM.init_cache(cfg, 1, 16, "cpu")
     dense = reduced(get_config("qwen2-1.5b"), layers=2, d_model=64,
                     vocab=331)
     tp = TM.init_params(dense, torch.Generator().manual_seed(0), "cpu")
     cache = TM.init_cache(dense, 1, 16, "cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         TM.prefill(dense, tp, torch.zeros((1, 4), dtype=torch.int64),
                    cache, prefix_len=torch.tensor([2]))
