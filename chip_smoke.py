@@ -23,6 +23,13 @@ read just after:
   n-gram drafts against its K = 0 tokens, (e3) the int8 wire tier's
   quality gate and the quantizer's bound on real offloaded pages; the
   twins' streams must agree in f32, where only a fault can part them;
+- (f) the front end on qwen2-1.5b: (f1) the live asyncio gateway
+  (``run_gateway_workload``) serving 8 interactive sessions with
+  barge-ins on the wall clock at scale 1 under the liveserve policy and
+  (f2) the same trace under fcfs, each held to what the trace
+  determines; (f3) the virtual-time replay twin (``run_replay``) on a
+  pool tight enough to evict, with the next-use eviction oracle, on
+  both planes in f32 (identical streams and turn records) and in bf16;
 
 and checks what comes out. Every phase is checked; any failure exits
 non-zero. The last line of standard output is
@@ -34,6 +41,7 @@ when the package it tests is not beside it.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -1249,6 +1257,266 @@ def int8_phase(cfg, params, dev) -> None:
           "the int8 pages did not come back")
 
 
+# ======================================================================
+# (f) the front end: the live gateway and its virtual-time replay twin
+# ======================================================================
+LIVE_TRACE = dict(kind="interactive", sessions=8, barge_in=0.3,
+                  arrival="poisson", rate_rps=1.0, max_turns=2,
+                  max_prompt=256, max_response=64)
+LIVE_APT = 0.08             # the workload's own audio seconds a token
+FRONTIER_CAP_S = 3.0
+LIVE_SLOTS, LIVE_CHUNK = 8, 16
+# a round's token budget holds every slot's decode token and one prefill
+# chunk beside them: at the default 16, decode slots whose playback
+# buffer is low (the first scheduling class) leave no room for the
+# chunk, and Algorithm 1 stops admission at it every round
+LIVE_BUDGET = LIVE_SLOTS + LIVE_CHUNK
+# (f3): 4 sessions of 2 turns (prompts <= 64, replies <= 16 tokens) on
+# 4 slots, pages of 16, 10 a session, and a pool of 18 pages: tight
+# enough that idle sessions are evicted and reloaded
+REPLAY_TRACE = dict(kind="interactive", num_sessions=4, seed=SEED,
+                    p_barge_in=0.3, arrival="poisson", rate_rps=1.0)
+REPLAY_GEOMETRY = dict(slots=4, page_size=16, pages_per_seq=10,
+                       num_pages=18)
+
+
+def install_eviction_oracle(kv):
+    """Wrap ``kv.evict`` so every eviction pass is checked against a
+    freshly-computed next-use ranking (the paper's Eq. 4): each victim's
+    next-use estimate must dominate (>=, with fp slack) every candidate
+    that was spared. Returns the violations list (empty == policy
+    agreement)."""
+    violations = []
+    orig_evict = kv.evict
+
+    def evict(need_blocks, now):
+        cands = {}
+        for sid, s in kv.sessions.items():
+            if s.evictable(now) <= 0:
+                continue
+            if kv.monitor is not None and kv.monitor.immediate_reuse(sid):
+                continue
+            cands[sid] = kv.next_use_estimate(sid, now)
+        victims = []
+        orig_es = kv._evict_session
+
+        def spy(sid, want, now2):
+            victims.append(sid)
+            return orig_es(sid, want, now2)
+
+        kv._evict_session = spy
+        try:
+            freed = orig_evict(need_blocks, now)
+        finally:
+            kv._evict_session = orig_es
+        vset = set(victims)
+        for v in vset:
+            if v not in cands:
+                violations.append(("illegal-victim", now, v, dict(cands)))
+        spared = [est for sid, est in cands.items() if sid not in vset]
+        if vset and spared:
+            lo = min(cands[v] for v in vset if v in cands)
+            if lo + 1e-9 < max(spared):
+                violations.append(("ranking", now, victims, dict(cands)))
+        return freed
+
+    kv.evict = evict
+    return violations
+
+
+def front_end_checks(tag, m, eng, wl, max_turns, apt,
+                     max_over_frontier_s) -> None:
+    """What the trace determines, whatever the clock: every session
+    completes, every clamped turn is recorded with a TTFP, the barged
+    turns are the trace's, each session's turns complete in order, the
+    frontier cap holds to one token of audio, the engine's invariants
+    hold, and the turn records' reload split is the engine's."""
+    from repro_torch.serving.workload import generate
+    trace = generate(wl)
+    check(m.completed_sessions == wl.num_sessions,
+          f"{tag}: {m.completed_sessions}/{wl.num_sessions} sessions "
+          f"completed")
+    want = {(s.session_id, ti) for s in trace
+            for ti in range(min(len(s.turns), max_turns))}
+    got = {(t.session_id, t.turn_index) for t in m.turns}
+    check(want and got == want, f"{tag}: turns {sorted(got)}")
+    check(all(t.ttfp is not None for t in m.turns),
+          f"{tag}: a turn has no TTFP")
+    barges = {(s.session_id, ti) for s in trace
+              for ti, turn in enumerate(s.turns[:max_turns])
+              if turn.barge_in}
+    barged = {(t.session_id, t.turn_index) for t in m.turns if t.barged}
+    check(barged == barges, f"{tag}: barged {sorted(barged)}, the trace "
+          f"barges {sorted(barges)}")
+    check(all(t.completed or t.barged for t in m.turns),
+          f"{tag}: a turn was lost")
+    order = {}
+    for t in sorted(m.turns, key=lambda t: (t.finish_time, t.turn_index)):
+        order.setdefault(t.session_id, []).append(t.turn_index)
+    check(all(v == sorted(v) for v in order.values()),
+          f"{tag}: turns completed out of order: {order}")
+    check(max_over_frontier_s <= apt + 1e-6,
+          f"{tag}: {max_over_frontier_s} s past the frontier cap")
+    eng.check_invariants()
+    for field, key in (("reload_stall_s", "reload_stall_s"),
+                       ("reload_off_path_s", "reload_off_path_s")):
+        rec = sum(getattr(t, field) for t in m.turns)
+        stat = sum(st[key] for s in eng.sessions.values()
+                   for st in s.turn_stats)
+        check(math.isclose(rec, stat, rel_tol=1e-9, abs_tol=1e-12),
+              f"{tag}: records {field} {rec} != turn stats {stat}")
+
+
+def live_phase(cfg, params, dev, policy: str) -> dict:
+    """(f1)/(f2) ``run_gateway_workload`` at full width on the scaled
+    wall clock at scale 1 (what a user hears): 8 interactive sessions
+    with barge-ins arriving at 1 session/s, 2 turns each, prompts <=
+    256 and replies <= 64 tokens, 8 slots, pages of 16, the default
+    pool, prefill chunks of 16 beside every slot's decode token. Each
+    round's host time is read around ``run_round`` (it ends copying the
+    logits to the host). Returns the summary."""
+    from repro_torch.serving.gateway.harness import (build_gateway,
+                                                     run_gateway_workload)
+    from repro_torch.serving.workload import WorkloadConfig
+    t0 = time.perf_counter()
+    gw = build_gateway(policy=policy, scale=1.0, model=(cfg, params),
+                       device=dev, slots=LIVE_SLOTS, page_size=16,
+                       pages_per_seq=40, round_token_budget=LIVE_BUDGET,
+                       prefill_chunk=LIVE_CHUNK, audio_per_token_s=LIVE_APT,
+                       frontier_cap_s=FRONTIER_CAP_S, seed=SEED)
+    warm = time.perf_counter() - t0
+    eng = gw.engine
+    bad, round_s, grants = [], [], [0, 0]
+    eng.logit_tap = lambda sid, lg: \
+        bad.append(sid) if not np.isfinite(lg).all() else None
+    run_round, schedule = eng.run_round, gw.scheduler.schedule
+
+    def timed_round(chunks):
+        t = time.perf_counter()
+        out = run_round(chunks)
+        round_s.append(time.perf_counter() - t)
+        return out
+
+    def counted_schedule(ready, budget, now):
+        # U0 is the playback-urgency class: a started reply whose
+        # client buffer fell to P_safe or below (an underrun risk)
+        d = schedule(ready, budget, now)
+        grants[0] += sum(d.classes.get(r.req_id) == 0 for r in d.batch)
+        grants[1] += len(d.batch)
+        return d
+
+    eng.run_round = timed_round
+    gw.scheduler.schedule = counted_schedule
+    t1 = time.perf_counter()
+    m, gw = run_gateway_workload(policy=policy, seed=SEED, gateway=gw,
+                                 timeout_s=600, **LIVE_TRACE)
+    secs = time.perf_counter() - t1
+    tag = f"({'f1' if policy == 'liveserve' else 'f2'}) {policy}"
+    check(not bad, f"{tag}: non-finite logits for {bad}")
+    wl = WorkloadConfig(kind=LIVE_TRACE["kind"],
+                        num_sessions=LIVE_TRACE["sessions"], seed=SEED,
+                        p_barge_in=LIVE_TRACE["barge_in"],
+                        arrival=LIVE_TRACE["arrival"],
+                        rate_rps=LIVE_TRACE["rate_rps"])
+    front_end_checks(tag, m, eng, wl, LIVE_TRACE["max_turns"], LIVE_APT,
+                     gw.max_over_frontier_s)
+    s = m.summary()
+    st = eng.transfer.stats
+    moved = st.reload_pages_off_path + st.reload_pages_on_path
+    gaps = sum(t.n_gaps for t in m.turns)
+    log(f"[frontend] {tag}: {len(m.turns)} turns "
+        f"({sum(t.barged for t in m.turns)} barged), P50 TTFP "
+        f"{s['p50_ttfp']:.4f} s, P90 TTFP {s['p90_ttfp']:.4f} s, "
+        f"continuity {s['continuity']:.4f}, reload_overlap_frac "
+        f"{s['reload_overlap_frac']:.4f}, completed sessions/s "
+        f"{s['completed_rps']:.4f}")
+    log(f"[frontend] {tag}: {gw.rounds} rounds, "
+        f"{1e3 * sum(round_s) / len(round_s):.2f} ms/round (min "
+        f"{1e3 * min(round_s):.2f}, max {1e3 * max(round_s):.2f}), "
+        f"{sum(round_s):.1f} s of {secs:.1f} s in rounds; "
+        f"transfer_overlap_frac "
+        f"{st.reload_pages_off_path / moved if moved else 0.0:.4f} "
+        f"({moved} pages reloaded, {eng.kv.evicted_blocks} evicted); "
+        f"max over frontier {gw.max_over_frontier_s:.4f} s; "
+        f"playback-urgency (U0) grants {grants[0]} of {grants[1]}, "
+        f"{gaps} playback gaps; warm-up {warm:.1f} s")
+    return s
+
+
+def replay_run(cfg, params, dev, fused: bool) -> dict:
+    """(f3) one ``run_replay`` of the tight-pool trace with the eviction
+    oracle installed (fresh next-use ranking per pass) and the engine's
+    invariants checked after every round."""
+    from repro_torch.serving.gateway.replay import ReplayConfig, run_replay
+    from repro_torch.serving.paged_engine import PagedRealtimeEngine
+    from repro_torch.serving.workload import WorkloadConfig
+    wl = WorkloadConfig(**REPLAY_TRACE)
+    rc = ReplayConfig(audio_per_token_s=LIVE_APT, round_token_budget=16,
+                      prefill_chunk=16, frontier_cap_s=FRONTIER_CAP_S,
+                      max_prompt=64, max_response=16, max_turns=2)
+    box = {}
+
+    def factory(clock):
+        eng = PagedRealtimeEngine(cfg, params, clock=clock, device=dev,
+                                  fused_step=fused, **REPLAY_GEOMETRY)
+        eng.kv.index_mode = "scan"
+        box["violations"] = install_eviction_oracle(eng.kv)
+        return eng
+
+    t0 = time.perf_counter()
+    m, gw = run_replay(factory, wl, rc, seed=SEED)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    eng = gw.eng
+    tag = (f"(f3) {'fused' if fused else 'per-token'} "
+           f"{str(cfg.activation_dtype()).replace('torch.', '')}")
+    check(not box["violations"], f"{tag}: eviction oracle: "
+          f"{box['violations'][:3]}")
+    check(eng.kv.evicted_blocks > 0, f"{tag}: the pool never evicted")
+    front_end_checks(tag, m, eng, wl, rc.max_turns, LIVE_APT,
+                     gw.max_over_frontier_s)
+    st = eng.transfer.stats
+    log(f"[frontend] {tag}: {gw.rounds} rounds in {secs:.1f} s, evicted "
+        f"{eng.kv.evicted_blocks} blocks, reloaded "
+        f"{eng.kv.reloaded_blocks} ({st.reload_pages_off_path} pages off "
+        f"the path, {st.reload_pages_on_path} on it), "
+        f"{len(eng.offload_events)} offload events, P90 TTFP "
+        f"{m.summary()['p90_ttfp']:.4f} s (virtual)")
+    return dict(records=[dataclasses.asdict(t) for t in m.turns],
+                histories={sid: s.history for sid, s in eng.sessions.items()},
+                offload_events=list(eng.offload_events))
+
+
+def replay_phase(cfg, params, dev) -> None:
+    """(f3) the replay twin on both planes in f32, where token streams
+    and turn records must be identical, then a bf16 fused run, its
+    streams logged against f32's (its modeled reload seconds differ:
+    a bf16 page is half the bytes on the modeled PCIe link)."""
+    t0 = time.perf_counter()
+    c32, p32 = f32_twin(cfg, params)
+    fused = replay_run(c32, p32, dev, True)
+    tokenwise = replay_run(c32, p32, dev, False)
+    del p32
+    torch.cuda.empty_cache()
+    same = sum(fused["histories"][s] == tokenwise["histories"][s]
+               for s in fused["histories"])
+    log(f"[frontend] (f3) f32: sessions with identical streams on both "
+        f"planes {same}/{len(fused['histories'])}, turn records identical "
+        f"{fused['records'] == tokenwise['records']}")
+    check(fused["records"] and fused["records"] == tokenwise["records"],
+          "(f3) turn records differ between the planes")
+    check(fused["histories"] == tokenwise["histories"],
+          "(f3) token streams differ between the planes")
+    check(fused["offload_events"] == tokenwise["offload_events"],
+          "(f3) offload events differ between the planes")
+    bf = replay_run(cfg, params, dev, True)
+    agree = sum(bf["histories"][s] == fused["histories"][s]
+                for s in fused["histories"])
+    log(f"[frontend] (f3) bf16 fused: sessions with the f32 streams "
+        f"{agree}/{len(fused['histories'])}; {time.perf_counter() - t0:.1f}"
+        f" s")
+
+
 def cast_params(tree, dtype, key=None):
     """Every leaf to ``dtype`` (no copy where it already is), except the
     mixer's leaves that stay f32 at any type."""
@@ -1347,6 +1615,22 @@ def main() -> int:
         _, counts = main_path(tag, fn, *args)
         add(counts, {"paged_prefill_attention": 0})
     log(f"[feature] phase (e): {time.perf_counter() - t_e:.1f} s")
+    # (f) the front end: the live gateway under each policy and the
+    # replay twin, each part with its own counts
+    t_f = time.perf_counter()
+    f1, counts = main_path("live gateway, liveserve (f1)", live_phase, cfg,
+                           params, dev, "liveserve")
+    add(counts, {"paged_prefill_attention": 0})
+    f2, counts = main_path("live gateway, fcfs (f2)", live_phase, cfg,
+                           params, dev, "fcfs")
+    add(counts, {"paged_prefill_attention": 0})
+    log(f"[frontend] P90 TTFP: liveserve (f1) {f1['p90_ttfp']:.4f} s, "
+        f"fcfs (f2) {f2['p90_ttfp']:.4f} s (random weights; no ordering "
+        f"is held)")
+    _, counts = main_path("replay twin (f3)", replay_phase, cfg, params,
+                          dev)
+    add(counts, {"paged_prefill_attention": 0, "paged_attention": 0})
+    log(f"[frontend] phase (f): {time.perf_counter() - t_f:.1f} s")
     del eng, params
     # (d) mamba2-1.3b at full width; prompts no multiple of its chunk
     t0 = time.perf_counter()

@@ -1,14 +1,34 @@
-"""Serving launcher for the port: runs the scripted multi-turn
-conversation on the paged engine.
+"""Serving launcher for the port — runs the realtime interaction
+pipeline.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --engine real
+Simulated pipeline (paper-scale policies on the virtual clock; touches
+no device):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --engine sim \\
+      --model qwen3-omni-like --workload interactive --concurrency 12 \\
+      --barge-in 0.5 --system liveserve
+
+Live gateway (the asyncio front end over the port's paged engine on a
+scaled wall clock):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --engine live \\
+      --workload interactive --sessions 8 --barge-in 0.3
+  PYTHONPATH=src python -m repro_torch.launch.serve --engine live \\
+      --device cpu --config tiny --sessions 4
+
+Real engine demo (the scripted multi-turn conversation, no gateway):
+
   PYTHONPATH=src python -m repro_torch.launch.serve --engine real \\
       --device cpu --config tiny
 
-``--config qwen2-1.5b`` (the default) serves the published width
-(28 layers, bf16) with random weights drawn from ``--seed``; ``tiny`` is
-the reduced two-layer f32 variant the CPU tests use. Only ``--engine
-real`` is ported so far; the live gateway comes in a later slice.
+``--config qwen2-1.5b`` (the default for live and real) serves the
+published width (28 layers, bf16) with random weights drawn from
+``--seed``; ``tiny`` is the reduced two-layer f32 variant the CPU tests
+use. Both run on ``--device cuda`` unless asked for the CPU. The flags
+and their rejections are the reference launcher's; the sharded plane
+(``--mesh``), kernel autotune (``--autotune``) and the replica fleet
+(``--replicas`` above 1, ``--workload handoff``) are not ported yet and
+are rejected naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -20,7 +40,6 @@ import torch
 from repro_torch.configs import get_config, reduced
 from repro_torch.device import resolve_device
 from repro_torch.models.model import init_params
-from repro_torch.serving.paged_engine import run_multiturn_demo
 
 # the demo's page counts and per-page transfer times are the reference
 # script's at any width: pages hold 8 * token_scale tokens, every
@@ -33,6 +52,33 @@ DEMOS = {
     "qwen2-1.5b": dict(page_size=16, token_scale=2, pcie_gb_s=1.12),
 }
 
+# the live gateway's geometry and trace clamps per config: ``tiny`` is
+# the reference harness's own (pages of 8, 8 a session, prompts <= 16
+# and replies <= 12 tokens, 0.25 s of audio a token, clock x4, rounds
+# of 16 tokens); qwen2-1.5b serves realistic turns (prompts <= 256,
+# replies <= 64) on pages of 16, 40 a session (two such turns), at the
+# workload's 0.08 s of audio a token and the clock a user hears (x1).
+# Its rounds hold every slot's decode token beside a prefill chunk of
+# 16 (budget None = slots + 16): a round of ~45 ms on the card adds
+# less than 80 ms of audio to a slot, so slots spend long stretches
+# below the playback-safety buffer, and at a budget of 16 their decode
+# tokens would leave no room for any chunk
+LIVE = {
+    "tiny": dict(page_size=8, pages_per_seq=8, max_prompt=16,
+                 max_response=12, max_turns=2, audio_per_token_s=0.25,
+                 scale=4.0, round_token_budget=16),
+    "qwen2-1.5b": dict(page_size=16, pages_per_seq=40, max_prompt=256,
+                       max_response=64, max_turns=2,
+                       audio_per_token_s=0.08, scale=1.0,
+                       round_token_budget=None),
+}
+PREFILL_CHUNK = 16
+
+# flags meaningful only for the sim / live engines; --engine real must
+# reject them explicitly instead of silently ignoring them
+_WORKLOAD_FLAGS = ("workload", "system", "sessions", "concurrency",
+                   "barge_in", "kv_gb")
+
 
 def build_config(name: str):
     if name == "tiny":
@@ -41,40 +87,282 @@ def build_config(name: str):
     return get_config(name)
 
 
-def build_demo(config: str, device, seed: int = 0):
-    """(cfg, params, demo kwargs) for ``run_multiturn_demo``: weights are
-    random, drawn from a ``torch.Generator`` on ``device`` seeded with
-    ``seed``."""
+def build_model(config: str, device, seed: int = 0):
+    """(cfg, params, device): weights are random, drawn from a
+    ``torch.Generator`` on ``device`` seeded with ``seed``."""
     dev = resolve_device(device)
     cfg = build_config(config)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    params = init_params(cfg, gen, dev)
+    return cfg, init_params(cfg, gen, dev), dev
+
+
+def build_demo(config: str, device, seed: int = 0):
+    """(cfg, params, demo kwargs) for ``run_multiturn_demo``."""
+    cfg, params, dev = build_model(config, device, seed)
     return cfg, params, dict(DEMOS[config], seed=seed, device=dev)
+
+
+def _not_ported(ap, flag: str, item: str) -> None:
+    ap.error(f"{flag} is not ported yet (ROADMAP.md queue 1 item {item})")
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--engine", default="real", choices=["real"],
-                    help="real: the scripted multi-turn paged-engine "
-                         "conversation")
-    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    ap.add_argument("--config", default="qwen2-1.5b", choices=list(DEMOS))
-    ap.add_argument("--fused-step", default=True,
-                    action=argparse.BooleanOptionalAction,
-                    help="run each round's whole token budget as one "
-                         "fused step (default) or on the per-token plane")
+    ap.add_argument("--engine", default="sim",
+                    choices=["sim", "real", "live"],
+                    help="sim: event-driven simulator; live: asyncio "
+                         "gateway over the port's paged engine "
+                         "(DESIGN.md §4); real: scripted paged-engine "
+                         "demo (DESIGN.md §3)")
+    ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
+                    help="real/live engines (default cuda)")
+    ap.add_argument("--config", default=None, choices=list(DEMOS),
+                    help="real/live engines: the served model (default "
+                         "qwen2-1.5b at full width; tiny is the reduced "
+                         "two-layer variant)")
+    ap.add_argument("--model", default=None,
+                    choices=["qwen3-omni-like", "ming-omni-like"],
+                    help="sim engine only; live/real serve --config")
+    ap.add_argument("--workload", default=None,
+                    choices=["sharegpt", "interactive", "mixed",
+                             "duplex", "toolcall", "handoff"],
+                    help="duplex: full-duplex periodic-frame sessions "
+                         "(per-token deadlines, deadline_miss_rate); "
+                         "toolcall: agentic tool-call pauses (hot-KV "
+                         "idle + resume without re-prefill); handoff: "
+                         "mid-conversation transfer to another replica "
+                         "(not ported yet). These need --engine live")
+    ap.add_argument("--system", default=None,
+                    choices=["liveserve", "vllm-omni", "vllm-omni-wo"])
+    ap.add_argument("--sessions", type=int, default=None)
+    ap.add_argument("--concurrency", type=int, default=None)
+    ap.add_argument("--barge-in", type=float, default=None)
+    ap.add_argument("--kv-gb", type=float, default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json", action="store_true")
+    # --engine real | live (the paged data plane)
+    ap.add_argument("--fused-step", default=True,
+                    action=argparse.BooleanOptionalAction,
+                    help="real/live engines: run each round's whole "
+                         "token budget (prefill chunks + decode) as one "
+                         "fused step (DESIGN.md §11). --no-fused-step "
+                         "serves on the per-token differential-control "
+                         "plane")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="real/live engines: shard the paged KV plane "
+                         "(not ported yet)")
+    # --engine live only
+    ap.add_argument("--prefix-cache", default=None,
+                    action=argparse.BooleanOptionalAction,
+                    help="live engine: share committed KV pages across "
+                         "sessions with identical prompt prefixes — "
+                         "refcounted copy-on-write pages behind a radix "
+                         "prefix index (DESIGN.md §13). Off by default "
+                         "(the bit-exact no-sharing control)")
+    ap.add_argument("--prompt-families", type=int, default=None,
+                    help="live engine: assign sessions round-robin to K "
+                         "shared-system-prompt families (workload knob "
+                         "that makes --prefix-cache hits observable)")
+    ap.add_argument("--family-prefix-len", type=int, default=None,
+                    help="live engine: shared prefix tokens per family "
+                         "(with --prompt-families)")
+    ap.add_argument("--clock-scale", type=float, default=None,
+                    help="live engine: wall-clock speedup factor "
+                         "(default 4 for tiny, 1 for qwen2-1.5b)")
+    ap.add_argument("--slots", type=int, default=None,
+                    help="live engine: decode batch rows")
+    ap.add_argument("--kv-pages", type=int, default=None,
+                    help="live engine: KV pool size in pages")
+    ap.add_argument("--preload-chunks", type=int, default=None,
+                    help="live engine: transfer chunks each round may "
+                         "drain between decode sub-batches — the async "
+                         "chunked KV transfer budget that lands "
+                         "speech-time preloads off the turn critical "
+                         "path (DESIGN.md §10)")
+    ap.add_argument("--kv-quant", default=None,
+                    choices=["fp32", "int8"],
+                    help="live engine: KV wire format on the offload "
+                         "path (DESIGN.md §14). int8 block-quantizes "
+                         "host copies (~4x less modeled PCIe per page, "
+                         "tolerance-gated quality); fp32 is the "
+                         "bit-exact default")
+    ap.add_argument("--spec-decode", type=int, default=None,
+                    metavar="K",
+                    help="live engine: draft up to K tokens per decode "
+                         "slot per round and verify them in the same "
+                         "fused step (self-speculative prompt-lookup "
+                         "drafts; DESIGN.md §16). Lossless: accepted "
+                         "streams equal K=0's. Needs --fused-step")
+    ap.add_argument("--autotune", default=None, metavar="CACHE.json",
+                    help="live engine: kernel autotune cache (not "
+                         "ported yet)")
+    ap.add_argument("--replicas", type=int, default=None,
+                    help="live engine: data-parallel engine replicas "
+                         "behind one gateway (only 1 is ported)")
     args = ap.parse_args(argv)
-    cfg, params, kw = build_demo(args.config, args.device, args.seed)
-    try:
+
+    if args.engine != "live":
+        live_only = [f"--{f.replace('_', '-')}" for f in
+                     ("clock_scale", "slots", "kv_pages",
+                      "preload_chunks", "replicas", "prefix_cache",
+                      "prompt_families", "family_prefix_len",
+                      "kv_quant", "spec_decode", "autotune")
+                     if getattr(args, f) is not None]
+        if live_only:
+            ap.error(f"{', '.join(live_only)} only apply to "
+                     f"--engine live")
+    if args.engine == "sim" and args.mesh is not None:
+        ap.error("--mesh shards the real paged data plane; the simulator "
+                 "models costs, not placement (use --engine real|live)")
+    if args.engine == "sim" and not args.fused_step:
+        ap.error("--no-fused-step selects the paged data plane's "
+                 "per-token control; the simulator has no data plane "
+                 "(use --engine real|live)")
+    if args.mesh is not None:
+        _not_ported(ap, "--mesh (the sharded page plane)", "3")
+    if args.engine != "sim" and args.model is not None:
+        ap.error("--model only applies to --engine sim; live/real serve "
+                 "--config")
+    if args.engine == "sim":
+        given = [f for f, v in (("--device", args.device),
+                                ("--config", args.config))
+                 if v is not None]
+        if given:
+            ap.error(f"{', '.join(given)} only apply to --engine "
+                     f"real|live; the simulator touches no device")
+    device = args.device or "cuda"
+    config = args.config or "qwen2-1.5b"
+
+    if args.engine == "real":
+        given = [f"--{f.replace('_', '-')}" for f in _WORKLOAD_FLAGS
+                 if getattr(args, f) is not None]
+        if given:
+            ap.error(
+                f"--engine real runs a fixed scripted demo and does not "
+                f"take {', '.join(given)}; use --engine live (real data "
+                f"plane under load) or --engine sim (paper-scale "
+                f"simulation)")
+        from repro_torch.serving.paged_engine import run_multiturn_demo
+        cfg, params, kw = build_demo(config, device, args.seed)
         out = run_multiturn_demo(
             cfg, params, fused_step=args.fused_step,
             log=(lambda *_a, **_k: None) if args.json else print, **kw)
-    except NotImplementedError as e:
-        ap.error(str(e))
+        if args.json:
+            print(json.dumps(out, indent=1, default=str))
+        return
+
+    # shared workload defaults for sim and live
+    workload = args.workload or "interactive"
+    if args.engine != "live" \
+            and workload in ("duplex", "toolcall", "handoff"):
+        ap.error(f"--workload {workload} drives gateway-level "
+                 f"interaction events (frame deadlines, tool pauses, "
+                 f"handoffs); use --engine live")
+    system = args.system or "liveserve"
+    sessions = args.sessions if args.sessions is not None else 32
+    barge_in = args.barge_in if args.barge_in is not None else 0.0
+
+    if args.engine == "live":
+        bad = [n for n, v in (("--kv-gb", args.kv_gb),
+                              ("--concurrency", args.concurrency))
+               if v is not None]
+        if bad:
+            ap.error(f"--engine live is open-loop on a page pool; "
+                     f"{', '.join(bad)} do not apply (use --kv-pages "
+                     f"for pool size)")
+        policies = {"liveserve": "liveserve", "vllm-omni": "fcfs"}
+        if system not in policies:
+            ap.error(f"--engine live supports --system "
+                     f"{'|'.join(policies)} (the paged data plane needs "
+                     f"an offload tier; 'vllm-omni-wo' discards KV — "
+                     f"use --engine sim for that baseline)")
+        replicas = args.replicas if args.replicas is not None else 1
+        if replicas < 1:
+            ap.error("--replicas must be >= 1")
+        spec_decode = args.spec_decode if args.spec_decode is not None \
+            else 0
+        if spec_decode < 0:
+            ap.error("--spec-decode must be >= 0")
+        if spec_decode > 0 and not args.fused_step:
+            ap.error("--spec-decode verifies drafts in one fused launch "
+                     "and cannot run on the per-token control plane; "
+                     "drop --no-fused-step (DESIGN.md §16)")
+        if args.autotune is not None:
+            _not_ported(ap, "--autotune (kernel autotune)", "4")
+        if replicas > 1:
+            _not_ported(ap, "--replicas above 1 (the replica fleet)", "5")
+        if workload == "handoff":
+            _not_ported(ap, "--workload handoff (it needs the replica "
+                        "fleet)", "5")
+        from repro_torch.serving.gateway import run_gateway_workload
+        live = LIVE[config]
+        cfg, params, dev = build_model(config, device, args.seed)
+        page = live["page_size"]
+        slots = args.slots if args.slots is not None else 8
+        m, gw = run_gateway_workload(
+            policy=policies[system], kind=workload, sessions=sessions,
+            barge_in=barge_in, seed=args.seed,
+            scale=(args.clock_scale
+                   if args.clock_scale is not None else live["scale"]),
+            slots=slots, num_pages=args.kv_pages, model=(cfg, params),
+            device=dev, page_size=page, prefill_chunk=PREFILL_CHUNK,
+            round_token_budget=(live["round_token_budget"]
+                                or slots + PREFILL_CHUNK),
+            preload_chunks=(args.preload_chunks
+                            if args.preload_chunks is not None else 1),
+            fused_step=args.fused_step,
+            prefix_cache=bool(args.prefix_cache),
+            kv_quant=args.kv_quant or "fp32",
+            spec_decode=spec_decode,
+            prompt_families=(args.prompt_families
+                             if args.prompt_families is not None else 0),
+            family_prefix_len=(args.family_prefix_len
+                               if args.family_prefix_len is not None
+                               else 0),
+            # the family prefix rides on top of the per-turn prompt
+            # draw, so grow each session's context window to fit it
+            pages_per_seq=live["pages_per_seq"]
+            + -(-(args.family_prefix_len or 0) // page),
+            max_prompt=live["max_prompt"],
+            max_response=live["max_response"],
+            max_turns=live["max_turns"],
+            audio_per_token_s=live["audio_per_token_s"],
+            frontier_cap_s=3.0 if system == "liveserve" else None)
+        eng = gw.engine
+        s = m.summary()
+        s["rounds"] = gw.rounds
+        s["max_over_frontier_s"] = gw.max_over_frontier_s
+        off = eng.transfer.stats.reload_pages_off_path
+        on = eng.transfer.stats.reload_pages_on_path
+        s["transfer_overlap_frac"] = off / (off + on) if off + on else 0.0
+    else:
+        from repro_torch.serving.costmodel import PIPELINES
+        from repro_torch.serving.simulator import run_sim
+        from repro_torch.serving.workload import WorkloadConfig
+
+        systems = {
+            "liveserve": dict(policy="liveserve"),
+            "vllm-omni": dict(policy="fcfs", kv_policy="lru",
+                              preload=False),
+            "vllm-omni-wo": dict(policy="fcfs", kv_policy="none",
+                                 preload=False),
+        }
+        pipe = PIPELINES[args.model or "qwen3-omni-like"](
+            kv_capacity_gb=args.kv_gb if args.kv_gb is not None else 4.0)
+        wl = WorkloadConfig(
+            kind=workload, num_sessions=sessions,
+            concurrency=(args.concurrency
+                         if args.concurrency is not None else 8),
+            seed=args.seed, p_barge_in=barge_in)
+        m = run_sim(pipe, wl, until=3600.0, **systems[system])
+        s = m.summary()
+
     if args.json:
-        print(json.dumps(out, indent=1, default=str))
+        print(json.dumps(s, indent=1))
+    else:
+        for k, v in s.items():
+            print(f"{k:20s} {v:.4f}" if isinstance(v, float)
+                  else f"{k:20s} {v}")
 
 
 if __name__ == "__main__":

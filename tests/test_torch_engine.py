@@ -395,14 +395,17 @@ def test_cuda_entry_points_raise_without_gpu(tiny):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tpe.PagedRealtimeEngine(tcfg, tp)          # default device: cuda
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        serve.main(["--config", "tiny"])
+        serve.main(["--engine", "real", "--config", "tiny"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tpe.run_multiturn_demo(tcfg, tp, log=lambda *_a: None)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tpe.run_multiturn_demo(tcfg, tp, fused_step=False,
                                log=lambda *_a: None)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        serve.main(["--no-fused-step", "--config", "tiny"])
+        serve.main(["--engine", "real", "--no-fused-step", "--config",
+                    "tiny"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--engine", "live", "--config", "tiny"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         RealtimeLLMEngine(tcfg, tp)                # default device: cuda
 
