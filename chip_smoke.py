@@ -30,6 +30,19 @@ read just after:
   determines; (f3) the virtual-time replay twin (``run_replay``) on a
   pool tight enough to evict, with the next-use eviction oracle, on
   both planes in f32 (identical streams and turn records) and in bf16;
+- (g) the sharded page plane (``mesh=``): (g0) the paged kernels'
+  sharding options (``pos_stride``, ``pos_offset``, ``return_stats``) at
+  the engine's shapes in one process, against the plain version, the
+  stripe merge and the unsharded kernel; then meshes of 2 (heads), 4
+  (slots) and 3 (replicated) ranks that share the card and talk gloo
+  through host memory, each rank a process of its own: (g1) the
+  global-view sharded kernels (and ``sharded_flash_prefill``) against
+  the single-device kernels, (g2) the sharded engine at full width:
+  phase (b)'s trace at M 2 in bf16 and M 4 in f32, token for token the
+  single-device engine's (M 4 in bf16 logged), a short per-token trace
+  at M 4 (the decode kernel with stats, the dense graft) and phase
+  (f3)'s replay at M 4 in f32, record for record the single-device
+  run's; the ranks' launch counts are summed into the kernels' line;
 
 and checks what comes out. Every phase is checked; any failure exits
 non-zero. The last line of standard output is
@@ -1124,9 +1137,10 @@ def spec_trace(cfg, params, dev, spec: int, proposer=None):
     return toks, rounds, secs, eng
 
 
-def spec_phase(cfg, params, dev, fused_b: dict, K: int = 3) -> None:
+def spec_phase(cfg, params, dev, fused_b: dict, K: int = 3) -> dict:
     """(e2) spec_decode=K with the n-gram proposer against phase (b)'s
-    K = 0 fused tokens."""
+    K = 0 fused tokens. Returns phase (b)'s trace's tokens in f32 (the
+    K = 0 twin), which (g2) holds the sharded engine to."""
     from repro_torch.serving.spec_decode import NGramProposer
 
     class TimedNGram(NGramProposer):
@@ -1181,6 +1195,7 @@ def spec_phase(cfg, params, dev, fused_b: dict, K: int = 3) -> None:
         runs.append(f"K={k} {sec:.3f} s ({r} rounds, "
                     f"{sec / r * 1e3:.2f} ms/round)")
     log(f"[feature] (e2) warm, in turns: {'; '.join(runs)}")
+    return b32
 
 
 def int8_phase(cfg, params, dev) -> None:
@@ -1443,13 +1458,19 @@ def live_phase(cfg, params, dev, policy: str) -> dict:
     return s
 
 
-def replay_run(cfg, params, dev, fused: bool) -> dict:
+def replay_run(cfg, params, dev, fused: bool, mesh=None) -> dict:
     """(f3) one ``run_replay`` of the tight-pool trace with the eviction
     oracle installed (fresh next-use ranking per pass) and the engine's
-    invariants checked after every round."""
+    invariants checked after every round. With ``mesh`` (g2) the engine
+    is sharded: the leader replays and returns the record, the other
+    ranks follow it and return None."""
     from repro_torch.serving.gateway.replay import ReplayConfig, run_replay
     from repro_torch.serving.paged_engine import PagedRealtimeEngine
     from repro_torch.serving.workload import WorkloadConfig
+    if mesh is not None and not mesh.is_leader:
+        PagedRealtimeEngine(cfg, params, device=dev, fused_step=fused,
+                            mesh=mesh, **REPLAY_GEOMETRY).follow()
+        return None
     wl = WorkloadConfig(**REPLAY_TRACE)
     rc = ReplayConfig(audio_per_token_s=LIVE_APT, round_token_budget=16,
                       prefill_chunk=16, frontier_cap_s=FRONTIER_CAP_S,
@@ -1458,18 +1479,25 @@ def replay_run(cfg, params, dev, fused: bool) -> dict:
 
     def factory(clock):
         eng = PagedRealtimeEngine(cfg, params, clock=clock, device=dev,
-                                  fused_step=fused, **REPLAY_GEOMETRY)
+                                  fused_step=fused, mesh=mesh,
+                                  **REPLAY_GEOMETRY)
         eng.kv.index_mode = "scan"
         box["violations"] = install_eviction_oracle(eng.kv)
+        box["eng"] = eng
         return eng
 
     t0 = time.perf_counter()
-    m, gw = run_replay(factory, wl, rc, seed=SEED)
+    try:
+        m, gw = run_replay(factory, wl, rc, seed=SEED)
+    finally:
+        if "eng" in box:
+            box["eng"].release_followers()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     eng = gw.eng
     tag = (f"(f3) {'fused' if fused else 'per-token'} "
-           f"{str(cfg.activation_dtype()).replace('torch.', '')}")
+           f"{str(cfg.activation_dtype()).replace('torch.', '')}"
+           + (f" {eng.layout}" if mesh is not None else ""))
     check(not box["violations"], f"{tag}: eviction oracle: "
           f"{box['violations'][:3]}")
     check(eng.kv.evicted_blocks > 0, f"{tag}: the pool never evicted")
@@ -1484,14 +1512,18 @@ def replay_run(cfg, params, dev, fused: bool) -> dict:
         f"{m.summary()['p90_ttfp']:.4f} s (virtual)")
     return dict(records=[dataclasses.asdict(t) for t in m.turns],
                 histories={sid: s.history for sid, s in eng.sessions.items()},
-                offload_events=list(eng.offload_events))
+                offload_events=list(eng.offload_events),
+                evicted=eng.kv.evicted_blocks,
+                reloaded=eng.kv.reloaded_blocks, rounds=gw.rounds,
+                secs=secs)
 
 
-def replay_phase(cfg, params, dev) -> None:
+def replay_phase(cfg, params, dev) -> dict:
     """(f3) the replay twin on both planes in f32, where token streams
     and turn records must be identical, then a bf16 fused run, its
     streams logged against f32's (its modeled reload seconds differ:
-    a bf16 page is half the bytes on the modeled PCIe link)."""
+    a bf16 page is half the bytes on the modeled PCIe link). Returns
+    the f32 fused run, which (g2) holds the sharded engine to."""
     t0 = time.perf_counter()
     c32, p32 = f32_twin(cfg, params)
     fused = replay_run(c32, p32, dev, True)
@@ -1515,6 +1547,371 @@ def replay_phase(cfg, params, dev) -> None:
     log(f"[frontend] (f3) bf16 fused: sessions with the f32 streams "
         f"{agree}/{len(fused['histories'])}; {time.perf_counter() - t0:.1f}"
         f" s")
+    return fused
+
+
+# ======================================================================
+# (g) the sharded page plane: M ranks sharing the one card
+# ======================================================================
+G_CTX = [0, 170, 411, 96, 250, 333, 128, 0]   # row 0 prefills from 0
+G_PLANS = {  # the parts each 1xM mesh runs: (g1) kernels, (g2) paths
+    2: ["kernels", "flash", ("fused", "bfloat16")],
+    4: ["kernels", ("fused", "bfloat16"), ("fused", "float32"),
+        ("tokenwise", "float32"), ("replay", "float32")],
+    3: ["kernels"],
+}
+G_LAYOUTS = {2: "heads", 4: "slots", 3: "replicated"}
+
+
+def stripe_merge(parts):
+    """The slots layout's exact merge of the stripes' (o, m, l), f32."""
+    m_star = torch.stack([m for _, m, _ in parts]).amax(0)
+    ws = [l * torch.exp(m - m_star) for _, m, l in parts]
+    den = sum(ws).clamp_min(1e-30)
+    return sum(o.float() * w[..., None]
+               for (o, _, _), w in zip(parts, ws)) / den[..., None]
+
+
+def options_err(tag, got, want, tol) -> list:
+    """A kernel's (o, m, l) with stats against the plain version's: the
+    rows that saw a key agree within ``tol`` (o, m, l; absolutely and
+    relatively, l being a sum of up to hundreds of weights), the two
+    agree on which rows saw one, and a row that saw none is finite zeros
+    with m = NEG_INF and l = 0. Returns the largest absolute error of o,
+    m and l."""
+    from repro_torch.kernels import ref
+    (o, m, l), (wo, wm, wl) = got, want
+    seen = wl > 0
+    check(torch.equal(l > 0, seen), f"{tag}: rows that saw a key differ")
+    check(bool(torch.isfinite(o).all() and torch.isfinite(m).all()),
+          f"{tag}: non-finite output or stats")
+    check(bool((o[~seen] == 0).all() and (l[~seen] == 0).all()
+               and (m[~seen] == ref.NEG_INF).all()),
+          f"{tag}: a row with no key is not zeros, NEG_INF, 0")
+    errs = []
+    for a, b in ((o, wo), (m, wm), (l, wl)):
+        e, ok = allclose_err(a[seen], b[seen], tol) if seen.any() \
+            else (0.0, True)
+        check(ok, f"{tag}: err {e} > {tol}")
+        errs.append(e)
+    return errs
+
+
+def options_phase(dev) -> None:
+    """(g0) the paged kernels' sharding options at the engine's shapes
+    (B 8, Q 16 and Q 1, Hq 12, Hkv 2, D 128, page 16), in one process:
+    every page cut into S = 2 and 4 stripes, each stripe's call with
+    ``pos_stride`` and stats on shifted starts held to the plain version
+    (f32: in f32 at 2e-5; bf16: the f32 plain version on the same inputs
+    at 2e-2), rows that see no key finite with l = 0, ``pos_offset``
+    bitwise the shifted call, the decode kernel bitwise the fused
+    kernel's Q = 1 case with the options on, and the merged stripes the
+    unsharded kernel. Times the stats variant beside the default."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import (
+        paged_attention, paged_prefill_attention)
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    timer = Timer(dev)
+    B, Q, page = 8, 16, 16
+    for dtype in (torch.float32, torch.bfloat16):
+        name, tol = str(dtype)[6:], TOL[dtype]
+        q, kp, vp, bt, qs, ql = kernel_case(dev, dtype, B, Q, G_CTX, g)
+        qd, sl = q[:, 0].contiguous(), qs + 1
+        plain = (q, kp, vp) if dtype == torch.float32 \
+            else tuple(x.float() for x in (q, kp, vp))
+        full = paged_prefill_attention(q, kp, vp, bt, qs, ql)
+        full_d = paged_attention(qd, kp, vp, bt, sl)
+        opts = dict(pos_stride=page, return_stats=True)
+        worst, merged, empty = [0.0] * 3, {}, 0
+        for S in (2, 4):
+            n = page // S
+            parts, parts_d = [], []
+            for st in range(S):
+                ks, vs = (x[:, st * n:(st + 1) * n].contiguous()
+                          for x in (kp, vp))
+                pk, pv = (x[:, st * n:(st + 1) * n].contiguous()
+                          for x in plain[1:])
+                got = paged_prefill_attention(q, ks, vs, bt, qs - st * n,
+                                              ql, **opts)
+                got_d = paged_attention(qd, ks, vs, bt, sl - st * n, **opts)
+                want = ref.paged_prefill_attention_ref(
+                    plain[0], pk, pv, bt, qs - st * n, ql, **opts)
+                want_d = ref.paged_attention_ref(
+                    plain[0][:, 0].contiguous(), pk, pv, bt, sl - st * n,
+                    **opts)
+                torch.cuda.synchronize()
+                tag = f"(g0) {name} stripe {st}/{S}"
+                for errs in (options_err(f"{tag} fused", got, want, tol),
+                             options_err(f"{tag} decode", got_d, want_d,
+                                         tol)):
+                    worst = [max(a, b) for a, b in zip(worst, errs)]
+                empty += int((want[2] == 0).sum() + (want_d[2] == 0).sum())
+                f1 = paged_prefill_attention(
+                    q[:, :1].contiguous(), ks, vs, bt, sl - 1 - st * n,
+                    torch.ones_like(ql), **opts)
+                check(all(torch.equal(a[:, 0], b)
+                          for a, b in zip(f1, got_d)),
+                      f"{tag}: fused Q=1 != decode kernel with the options")
+                by_off = paged_prefill_attention(
+                    q, ks, vs, bt, qs, ql, pos_stride=page,
+                    pos_offset=st * n, return_stats=True)
+                check(all(torch.equal(a, b) for a, b in zip(by_off, got)),
+                      f"{tag}: pos_offset != the shifted starts")
+                parts.append(got)
+                parts_d.append(got_d)
+            merged[S] = (max_valid_err(stripe_merge(parts), full, ql),
+                         (stripe_merge(parts_d)
+                          - full_d.float()).abs().max().item())
+            check(max(merged[S]) <= tol, f"(g0) {name}: {S} stripes "
+                  f"merged vs the unsharded kernel {merged[S]}")
+        log(f"[sharded] (g0) {name}: stripe calls vs plain, max abs err of "
+            f"o, m, l {worst} (tol {tol} abs and rel); {empty} (row, "
+            f"stripe) stats with no key, all "
+            f"finite zeros with l = 0; fused Q=1 == decode and pos_offset "
+            f"== shift bitwise; merged stripes vs the unsharded kernel "
+            f"(fused, decode): {merged}")
+        if dtype != torch.bfloat16:
+            continue
+        ks, vs = (x[:, 4:8].contiguous() for x in (kp, vp))
+        for kname, fn, args, stripe in (
+                ("paged_prefill_attention", paged_prefill_attention,
+                 (q, kp, vp, bt, qs, ql), (q, ks, vs, bt, qs - 4, ql)),
+                ("paged_attention", paged_attention, (qd, kp, vp, bt, sl),
+                 (qd, ks, vs, bt, sl - 4))):
+            ms = [timer(lambda: fn(*args)),
+                  timer(lambda: fn(*args, return_stats=True)),
+                  timer(lambda: fn(*stripe, **opts))]
+            log(f"[sharded] (g0) {kname} bf16 B={B} ctx={G_CTX}: default "
+                f"{ms[0]:.4f} ms, with stats {ms[1]:.4f} ms, one of 4 "
+                f"stripes (pos_stride, stats) {ms[2]:.4f} ms")
+
+
+def g1_kernels(mesh, dev) -> dict:
+    """(g1) on one rank: the global-view sharded kernels at the engine's
+    shapes against the single-device kernels on the same inputs (every
+    rank draws them from one seed)."""
+    from types import SimpleNamespace
+    from repro_torch.distributed.paged import (PagedKVLayout,
+                                               sharded_paged_attention)
+    from repro_torch.kernels.paged_attention import (
+        paged_attention, paged_prefill_attention)
+    layout = PagedKVLayout(SimpleNamespace(num_kv_heads=2), mesh, 16)
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, kp, vp, bt, qs, ql = kernel_case(dev, dtype, 8, 16, G_CTX, g)
+        qd, sl = q[:, 0].contiguous(), qs + 1
+        one = paged_prefill_attention(q, kp, vp, bt, qs, ql)
+        got = layout.attend_chunk(q, layout.shard(kp), layout.shard(vp), bt,
+                                  qs, ql)
+        one_d = paged_attention(qd, kp, vp, bt, sl)
+        got_d = sharded_paged_attention(layout, qd, kp, vp, bt, sl)
+        torch.cuda.synchronize()
+        out[str(dtype)[6:]] = dict(
+            kind=layout.kind, err=max_valid_err(got, one, ql),
+            err_d=(got_d.float() - one_d.float()).abs().max().item(),
+            bitwise=torch.equal(got, one), bitwise_d=torch.equal(got_d,
+                                                                 one_d))
+    return out
+
+
+def g1_flash(mesh, dev) -> dict:
+    """(g1) ``sharded_flash_prefill`` at phase (c)'s longest prompt
+    (B 1, Hq 12, Hkv 2, 2048 tokens, D 128, bf16) against the kernel."""
+    from types import SimpleNamespace
+    from repro_torch.distributed.paged import (PagedKVLayout,
+                                               sharded_flash_prefill)
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    layout = PagedKVLayout(SimpleNamespace(num_kv_heads=2), mesh, 16)
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    q, k, v = (torch.randn(1, h, 2048, 128, generator=g, device=dev)
+               .to(torch.bfloat16) for h in (12, 2, 2))
+    one = flash_prefill(q, k, v)
+    got = sharded_flash_prefill(layout, q, k, v)
+    torch.cuda.synchronize()
+    return dict(err=(got.float() - one.float()).abs().max().item(),
+                bitwise=torch.equal(got, one))
+
+
+def g2_trace(cfg, params, dev, mesh) -> dict:
+    """(g2) phase (b)'s trace on the fused plane, on the sharded engine
+    (the leader's result; a follower follows and returns None)."""
+    from repro_torch.serving.paged_engine import PagedRealtimeEngine
+    eng = PagedRealtimeEngine(cfg, params, slots=8, page_size=16,
+                              pages_per_seq=32, device=dev, mesh=mesh)
+    if not mesh.is_leader:
+        eng.follow()
+        return None
+    bad = []
+    eng.logit_tap = lambda sid, lg: \
+        bad.append(sid) if not np.isfinite(lg).all() else None
+    try:
+        toks, rounds, fed, secs = mixed_trace(
+            eng, np.random.default_rng(SEED), 8, 24, 16)
+        eng.check_invariants()
+    finally:
+        eng.release_followers()
+    check(not bad, f"(g2) {eng.layout}: non-finite logits for {bad}")
+    return dict(tokens=toks, rounds=rounds, fed=fed, secs=secs)
+
+
+def tokenwise_trace(cfg, params, dev, mesh=None) -> dict:
+    """(g2) a short trace on the per-token plane: two turns 0 through
+    ``add_session`` (the dense graft, ``flash_prefill``), their decode,
+    and a turn 1 whose prompt is teacher-forced token by token
+    (``paged_attention``). On a mesh the leader returns the result and a
+    follower follows and returns None."""
+    from repro_torch.serving.paged_engine import PagedRealtimeEngine
+    eng = PagedRealtimeEngine(cfg, params, slots=2, page_size=16,
+                              pages_per_seq=8, device=dev, fused_step=False,
+                              mesh=mesh)
+    if mesh is not None and not mesh.is_leader:
+        eng.follow()
+        return None
+    rng = np.random.default_rng(SEED + 9)
+    V, steps = cfg.vocab_size, 0
+    t0 = time.perf_counter()
+    try:
+        eng.add_session("t0", rng.integers(0, V, size=40), max_new_tokens=8)
+        eng.add_session("t1", rng.integers(0, V, size=56), max_new_tokens=8)
+        while eng.active():
+            eng.step()
+            steps += 1
+        eng.start_turn("t0", rng.integers(0, V, size=6), max_new_tokens=6)
+        while eng.active():
+            eng.step()
+            steps += 1
+        eng.check_invariants()
+    finally:
+        eng.release_followers()
+    torch.cuda.synchronize()
+    return dict(histories={s: x.history for s, x in eng.sessions.items()},
+                steps=steps, secs=time.perf_counter() - t0)
+
+
+def sharded_rank(mesh, plan) -> dict:
+    """(g1)/(g2) on one rank of a 1xM mesh on the shared card: the parts
+    of ``plan``, each engine path with the kernels' counts zeroed just
+    before it and read just after (every rank counts its own)."""
+    from repro_torch.launch.serve import build_demo
+    dev = mesh.device
+    out, params = {}, None
+    for part in plan:
+        if part == "kernels":
+            out[part] = g1_kernels(mesh, dev)
+            continue
+        if part == "flash":
+            out[part] = g1_flash(mesh, dev)
+            continue
+        what, dtype = part
+        if params is None or params["embed"].dtype != getattr(torch, dtype):
+            cfg, params, _ = build_demo("qwen2-1.5b", dev, SEED)
+            if dtype == "float32":
+                cfg, params = f32_twin(cfg, params)
+                torch.cuda.empty_cache()
+        wrappers = kernel_counts()
+        for w in wrappers.values():
+            w.launches = 0
+        if what == "fused":
+            res = g2_trace(cfg, params, dev, mesh)
+        elif what == "tokenwise":
+            res = tokenwise_trace(cfg, params, dev, mesh)
+        else:
+            res = replay_run(cfg, params, dev, True, mesh=mesh)
+        out[part] = dict(result=res, counts={n: w.launches
+                                             for n, w in wrappers.items()})
+    return out
+
+
+def sharded_phase(cfg, params, dev, planes: dict, b32: dict,
+                  replay32: dict) -> list:
+    """(g) the sharded page plane: (g0) the kernels' options in one
+    process, then 1x2 (heads), 1x4 (slots) and 1x3 (replicated) meshes of
+    ranks sharing the card over gloo: (g1) the global-view kernels
+    against the single-device kernels, (g2) the sharded engine held to
+    the single-device one. Returns ``[(tag, summed counts, expected)]``
+    for the (g2) paths."""
+    from repro_torch.launch.mesh import spawn
+    t_g = time.perf_counter()
+    options_phase(dev)
+    c32, p32 = f32_twin(cfg, params)
+    tw32 = tokenwise_trace(c32, p32, dev)
+    del p32
+    torch.cuda.empty_cache()
+    single = {"bfloat16": planes["fused"], "float32": dict(tokens=b32)}
+    paths = []
+    for M, plan in G_PLANS.items():
+        kind = G_LAYOUTS[M]
+        t0 = time.perf_counter()
+        outs = spawn(f"1x{M}", sharded_rank, plan, device="cuda",
+                     timeout_s=600)
+        log(f"[sharded] 1x{M} ({kind}): {M} ranks on one card, gloo "
+            f"through host memory, {time.perf_counter() - t0:.1f} s")
+        for r, o in enumerate(outs):
+            for name, k in o["kernels"].items():
+                tol = TOL[getattr(torch, name)]
+                check(k["kind"] == kind, f"1x{M}: layout {k['kind']}")
+                check(max(k["err"], k["err_d"]) <= tol,
+                      f"(g1) 1x{M} rank {r} {name}: sharded vs single "
+                      f"{k['err']} / {k['err_d']}")
+                if r == 0:
+                    log(f"[sharded] (g1) 1x{M} {kind} {name}: "
+                        f"attend_chunk vs the kernel max err {k['err']} "
+                        f"(bitwise {k['bitwise']}), sharded_paged_attention"
+                        f" {k['err_d']} (bitwise {k['bitwise_d']}), tol "
+                        f"{tol}")
+            if "flash" in o:
+                f = o["flash"]
+                check(f["err"] <= TOL[torch.bfloat16],
+                      f"(g1) sharded_flash_prefill rank {r}: {f['err']}")
+                if r == 0:
+                    log(f"[sharded] (g1) 1x{M} sharded_flash_prefill bf16 "
+                        f"2048 tokens: max err {f['err']} vs the kernel "
+                        f"(bitwise {f['bitwise']})")
+        for part in plan:
+            if not isinstance(part, tuple):
+                continue
+            what, dtype = part
+            res = outs[0][part]["result"]
+            counts = {n: sum(o[part]["counts"][n] for o in outs)
+                      for n in outs[0][part]["counts"]}
+            tag = f"(g2) 1x{M} {kind} {what} {dtype}"
+            paths.append((tag, counts, part))
+            if what == "fused":
+                ref_toks = single[dtype]["tokens"]
+                same = sum(res["tokens"][s] == ref_toks[s] for s in ref_toks)
+                b = planes["fused"]
+                log(f"[sharded] {tag}: {res['rounds']} rounds in "
+                    f"{res['secs']:.2f} s = "
+                    f"{res['secs'] / res['rounds'] * 1e3:.2f} ms/round "
+                    f"(single device, phase (b): "
+                    f"{b['secs'] / b['rounds'] * 1e3:.2f} ms/round); "
+                    f"sessions with the single-device {dtype} tokens "
+                    f"{same}/{len(ref_toks)}")
+                if not (kind == "slots" and dtype == "bfloat16"):
+                    check(res["tokens"] == ref_toks, f"{tag}: tokens "
+                          "differ from the single-device engine's")
+            elif what == "tokenwise":
+                same = res["histories"] == tw32["histories"]
+                log(f"[sharded] {tag}: {res['steps']} steps in "
+                    f"{res['secs']:.2f} s = "
+                    f"{res['secs'] / res['steps'] * 1e3:.2f} ms/step "
+                    f"(single device {tw32['secs'] / tw32['steps'] * 1e3:.2f}"
+                    f" ms/step); histories equal {same}")
+                check(res["histories"] == tw32["histories"],
+                      f"{tag}: histories differ from the single device's")
+            else:
+                log(f"[sharded] {tag}: {res['rounds']} rounds in "
+                    f"{res['secs']:.1f} s, evicted {res['evicted']}, "
+                    f"reloaded {res['reloaded']} (single device "
+                    f"{replay32['evicted']}, {replay32['reloaded']}); "
+                    f"records equal {res['records'] == replay32['records']}")
+                for key in ("records", "histories", "offload_events",
+                            "evicted", "reloaded"):
+                    check(res[key] == replay32[key], f"{tag}: {key} differ "
+                          "from the single-device run's")
+    log(f"[sharded] phase (g): {time.perf_counter() - t_g:.1f} s")
+    return paths
 
 
 def cast_params(tree, dtype, key=None):
@@ -1607,12 +2004,13 @@ def main() -> int:
     # (e) the paged engine's feature planes at full width, each part
     # with its own counts: every one runs the fused kernel
     t_e = time.perf_counter()
+    feature = {}
     for tag, fn, args in (
             ("prefix plane (e1)", prefix_phase, (cfg, params, dev)),
             ("spec plane (e2)", spec_phase,
              (cfg, params, dev, eng["planes"]["fused"])),
             ("int8 wire tier (e3)", int8_phase, (cfg, params, dev))):
-        _, counts = main_path(tag, fn, *args)
+        feature[tag], counts = main_path(tag, fn, *args)
         add(counts, {"paged_prefill_attention": 0})
     log(f"[feature] phase (e): {time.perf_counter() - t_e:.1f} s")
     # (f) the front end: the live gateway under each policy and the
@@ -1627,10 +2025,19 @@ def main() -> int:
     log(f"[frontend] P90 TTFP: liveserve (f1) {f1['p90_ttfp']:.4f} s, "
         f"fcfs (f2) {f2['p90_ttfp']:.4f} s (random weights; no ordering "
         f"is held)")
-    _, counts = main_path("replay twin (f3)", replay_phase, cfg, params,
-                          dev)
+    replay32, counts = main_path("replay twin (f3)", replay_phase, cfg,
+                                 params, dev)
     add(counts, {"paged_prefill_attention": 0, "paged_attention": 0})
     log(f"[frontend] phase (f): {time.perf_counter() - t_f:.1f} s")
+    # (g) the sharded page plane: its paths ran in the ranks, each rank
+    # counting its own launches from zero just before each path
+    torch.cuda.empty_cache()
+    for tag, counts, (what, _) in sharded_phase(
+            cfg, params, dev, eng["planes"],
+            feature["spec plane (e2)"], replay32):
+        log(f"[launches] {tag}: {counts}")
+        add(counts, {"paged_attention": 0, "flash_prefill": 0}
+            if what == "tokenwise" else {"paged_prefill_attention": 0})
     del eng, params
     # (d) mamba2-1.3b at full width; prompts no multiple of its chunk
     t0 = time.perf_counter()

@@ -19,6 +19,20 @@
 // block_tables [B, pps] int32. The G = Hq / Hkv query heads of one KV
 // head share its pages.
 //
+// The Pallas kernels' sharding options, for one shard of a page store
+// whose pages are split by slot (distributed/paged.py): local slot j of
+// table column p sits at position p * pos_stride + pos_offset + j
+// (pos_stride >= page; the default pos_stride = page, pos_offset = 0 is
+// the identity), and with stats the merge also writes each row's (m, l)
+// [B, Q, Hq] f32 in natural-log units, m = NEG_INF and l = 0 for a row
+// that sees no key. The walk runs over local keys: a row's causal limit
+// is mapped once to the count of local keys at or before it
+// (`visible_keys`), and every bound below compares key indices with such
+// counts, so a shard walks, reads and masks only its own keys. A limit
+// below the shard's first position (the slot layout shifts seq_lens and
+// q_start by the shard's offset, which can make them zero or negative)
+// gives a count of 0: no key is read and the row's output is zeros.
+//
 // What bounds it on an H100: the K/V bytes it must read (each valid page
 // of each (row, KV head) once) at 3.35 TB/s; its arithmetic is small. The
 // TPU grid walked a row's pages in order on one core with the accumulator
@@ -80,6 +94,21 @@ constexpr int kStages = 4;          // tiles in the cp.async ring
 constexpr int kSpanKeys = 128;      // keys per span (ref.SPAN_KEYS)
 constexpr float kNegInf = -0.7f * 3.402823466e38f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// The local keys at or before position `limit` (capped at the table's
+// `seq_end` keys): key k, slot k % page of table column k / page, sits
+// at (k / page) * stride + offset + k % page, which grows with k. With
+// the identity mapping it is limit + 1 (0 for a negative limit).
+__device__ __forceinline__ int visible_keys(int limit, int page,
+                                            int stride, int offset,
+                                            int seq_end) {
+  const int x = limit - offset;
+  if (x < 0) return 0;
+  const int p = x / stride;
+  if (p >= seq_end / page) return seq_end;
+  return p * page + min(x - p * stride + 1, page);
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -235,7 +264,8 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                        const int* __restrict__ q_lens,
                        float* __restrict__ o_part,
                        float* __restrict__ ml_part, int Q, int Hq, int Hkv,
-                       int page, int pps, int nspan, float scale) {
+                       int page, int pps, int nspan, float scale,
+                       int stride, int offset) {
   constexpr int EPC = 16 / sizeof(T);  // elements of a 16-byte chunk
   constexpr int CH = D / EPC;          // chunks of a row
   constexpr int DT = D / 8;            // n8 tiles of the output
@@ -260,8 +290,11 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   const int warp = tid / 32, lane = tid % 32;
   const int seq_end = pps * page;
   const int key0 = sp * kSpanKeys;
-  const int key_end =
-      min(min(key0 + kSpanKeys, start + (r_hi - 1) / G + 1), seq_end);
+  auto visible = [&](int row) {  // local keys query row `row` attends
+    return visible_keys(start + row / G, page, stride, offset, seq_end);
+  };
+  // the block's last live row sees the most keys
+  const int key_end = min(key0 + kSpanKeys, visible(r_hi - 1));
   const size_t part = ((size_t)(b * Hkv + h) * nspan + sp) * rows;
 
   if (key_end <= key0) {  // the span lies past every row's limit
@@ -320,8 +353,8 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   const int wr0 = r0 + warp * 16;
   const bool warp_live = wr0 < r_hi;
   const int row_a = wr0 + lane / 4, row_b = row_a + 8;
-  const int limit[2] = {start + row_a / G, start + row_b / G};
-  const int w_min_limit = start + wr0 / G;
+  const int n_vis[2] = {visible(row_a), visible(row_b)};
+  const int w_min_vis = visible(wr0);  // the warp's first row sees least
   const int qc = 2 * (lane % 4);
   // scores in log2 units (scale * log2 e folded in): one ex2 per weight;
   // m is kept in these units, also in ml_part
@@ -350,18 +383,17 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     // scale into log2 units; the element mask only where the tile
     // crosses a row's limit or the end of the table
     const int kb = key0 + j * kTileKeys;
-    const bool edge = kb + kTileKeys - 1 > w_min_limit ||
-                      kb + kTileKeys > seq_end;
+    const bool edge = kb + kTileKeys > w_min_vis || kb + kTileKeys > seq_end;
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float val = s[nt][e] * scale2;
         if (edge) {
-          const int pos = kb + nt * 8 + qc + (e & 1);
+          const int key = kb + nt * 8 + qc + (e & 1);
           // no such key: weight exactly 0; past the row's limit: NEG_INF
-          val = pos >= seq_end ? -INFINITY
-                               : (pos > limit[e / 2] ? kNegInf : val);
+          val = key >= seq_end ? -INFINITY
+                               : (key >= n_vis[e / 2] ? kNegInf : val);
         }
         s[nt][e] = val;
       }
@@ -417,7 +449,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     const int r = i ? row_b : row_a;
     if (r >= r_hi) continue;
     const size_t idx = part + r;
-    if (limit[i] < key0) {  // this row's limit ends before the span
+    if (n_vis[i] <= key0) {  // this row's limit ends before the span
       ml_part[idx * 2] = kNegInf;
       ml_part[idx * 2 + 1] = 0.f;
       continue;
@@ -433,12 +465,15 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 }
 
 // One warp per (b, KV head, row): the spans' partials combined in span
-// order; padding rows (t >= q_lens[b]) written as zeros.
+// order; padding rows (t >= q_lens[b]) written as zeros. With m_out
+// (l_out beside it; both null without stats) it also writes the row's
+// (m, l) over all its spans, m in natural-log units.
 template <typename T, int D, bool DECODE>
 __global__ void __launch_bounds__(128)
 paged_merge(const float* __restrict__ o_part,
             const float* __restrict__ ml_part,
-            const int* __restrict__ q_lens, T* __restrict__ out, int B,
+            const int* __restrict__ q_lens, T* __restrict__ out,
+            float* __restrict__ m_out, float* __restrict__ l_out, int B,
             int Q, int Hq, int Hkv, int nspan) {
   constexpr int EPL = D / 32;  // elements of a row held by each lane
   const int G = Hq / Hkv;
@@ -449,10 +484,15 @@ paged_merge(const float* __restrict__ o_part,
   const int r = w % rows, bh = w / rows;
   const int h = bh % Hkv, b = bh / Hkv;
   const int t = r / G, g = r % G;
-  T* op = out + (((size_t)b * Q + t) * Hq + h * G + g) * D + lane * EPL;
+  const size_t row_out = ((size_t)b * Q + t) * Hq + h * G + g;
+  T* op = out + row_out * D + lane * EPL;
   if (r >= G * (DECODE ? 1 : q_lens[b])) {
 #pragma unroll
     for (int e = 0; e < EPL; ++e) op[e] = from_f32<T>(0.f);
+    if (m_out != nullptr && lane == 0) {
+      m_out[row_out] = kNegInf;
+      l_out[row_out] = 0.f;
+    }
     return;
   }
   const size_t first = (size_t)bh * nspan * rows + r;
@@ -475,12 +515,16 @@ paged_merge(const float* __restrict__ o_part,
   const float denom = fmaxf(L, 1e-30f);
 #pragma unroll
   for (int e = 0; e < EPL; ++e) op[e] = from_f32<T>(acc[e] / denom);
+  if (m_out != nullptr && lane == 0) {
+    m_out[row_out] = L > 0.f ? M * kLn2 : kNegInf;
+    l_out[row_out] = L;
+  }
 }
 
 struct Args {
   const void *q, *k, *v, *bt, *starts, *q_lens;
-  void *out, *o_part, *ml_part;
-  int B, Q, Hq, Hkv, page, pps, nspan;
+  void *out, *o_part, *ml_part, *m_out, *l_out;
+  int B, Q, Hq, Hkv, page, pps, nspan, stride, offset;
   float scale;
   cudaStream_t stream;
 };
@@ -488,7 +532,8 @@ struct Args {
 template <typename T, int D, bool DECODE>
 cudaError_t launch(const Args& a) {
   // the scratch must hold a span for every key of the table
-  if ((long long)a.nspan * kSpanKeys < (long long)a.pps * a.page)
+  if ((long long)a.nspan * kSpanKeys < (long long)a.pps * a.page ||
+      a.stride < a.page || (a.m_out == nullptr) != (a.l_out == nullptr))
     return cudaErrorInvalidValue;
   const int rows = (a.Hq / a.Hkv) * a.Q;
   const int groups = (rows + kRows - 1) / kRows;
@@ -503,14 +548,15 @@ cudaError_t launch(const Args& a) {
       static_cast<const T*>(a.v), static_cast<const int*>(a.bt),
       static_cast<const int*>(a.starts), static_cast<const int*>(a.q_lens),
       static_cast<float*>(a.o_part), static_cast<float*>(a.ml_part), a.Q,
-      a.Hq, a.Hkv, a.page, a.pps, a.nspan, a.scale);
+      a.Hq, a.Hkv, a.page, a.pps, a.nspan, a.scale, a.stride, a.offset);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const int warps = a.B * a.Hkv * rows;
   paged_merge<T, D, DECODE><<<(warps + 3) / 4, 128, 0, a.stream>>>(
       static_cast<const float*>(a.o_part),
       static_cast<const float*>(a.ml_part),
-      static_cast<const int*>(a.q_lens), static_cast<T*>(a.out), a.B, a.Q,
+      static_cast<const int*>(a.q_lens), static_cast<T*>(a.out),
+      static_cast<float*>(a.m_out), static_cast<float*>(a.l_out), a.B, a.Q,
       a.Hq, a.Hkv, a.nspan);
   return cudaGetLastError();
 }
@@ -537,13 +583,17 @@ extern "C" int paged_span_keys() { return kSpanKeys; }
 // Returns cudaGetLastError() after the launches (0 on success). o_part
 // [B, Hkv, nspan, Hq/Hkv * Q, D] and ml_part [..., 2] are f32 scratch for
 // the span partials, nspan >= ceil(pps * page / paged_span_keys()).
+// pos_stride >= page and pos_offset place the local slots (page, 0 for
+// the identity); m_out/l_out are the [B, Q, Hq] f32 stats, or both null.
 extern "C" int paged_prefill_attention_launch(
     int dtype, const void* q, const void* k_pages, const void* v_pages,
     const void* block_tables, const void* q_start, const void* q_lens,
-    void* out, void* o_part, void* ml_part, int B, int Q, int Hq, int Hkv,
-    int D, int page, int pps, int nspan, float scale, void* stream) {
+    void* out, void* o_part, void* ml_part, void* m_out, void* l_out, int B,
+    int Q, int Hq, int Hkv, int D, int page, int pps, int nspan,
+    int pos_stride, int pos_offset, float scale, void* stream) {
   const Args a{q, k_pages, v_pages, block_tables, q_start, q_lens, out,
-               o_part, ml_part, B, Q, Hq, Hkv, page, pps, nspan, scale,
+               o_part, ml_part, m_out, l_out, B, Q, Hq, Hkv, page, pps,
+               nspan, pos_stride, pos_offset, scale,
                static_cast<cudaStream_t>(stream)};
   return dispatch<false>(dtype, D, a);
 }
@@ -551,10 +601,12 @@ extern "C" int paged_prefill_attention_launch(
 extern "C" int paged_attention_launch(
     int dtype, const void* q, const void* k_pages, const void* v_pages,
     const void* block_tables, const void* seq_lens, void* out, void* o_part,
-    void* ml_part, int B, int Hq, int Hkv, int D, int page, int pps,
-    int nspan, float scale, void* stream) {
+    void* ml_part, void* m_out, void* l_out, int B, int Hq, int Hkv, int D,
+    int page, int pps, int nspan, int pos_stride, int pos_offset,
+    float scale, void* stream) {
   const Args a{q, k_pages, v_pages, block_tables, seq_lens, nullptr, out,
-               o_part, ml_part, B, 1, Hq, Hkv, page, pps, nspan, scale,
+               o_part, ml_part, m_out, l_out, B, 1, Hq, Hkv, page, pps,
+               nspan, pos_stride, pos_offset, scale,
                static_cast<cudaStream_t>(stream)};
   return dispatch<true>(dtype, D, a);
 }

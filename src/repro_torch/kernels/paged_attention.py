@@ -17,9 +17,13 @@ the table width and a second kernel merges
 PyTorch); the type picks only the arithmetic of the tile products:
 float32 on CUDA cores, bfloat16 on the tensor cores.
 
-This slice ports the single-device contract: ``pos_stride = page``,
-``pos_offset = 0``, no softmax stats and no tiling knobs (those come
-with the sharded plane and with autotune).
+Both take the Pallas kernels' sharding options: ``pos_stride`` and
+``pos_offset`` place a slot-sharded page's local slots at their global
+positions, and ``return_stats`` returns each row's softmax (m, l) for
+the exact merge across shards (``distributed/paged.py``). The tiling
+knobs ``kv_block``/``head_block`` are not ported (they come with
+autotune). Without the options the kernels compute exactly what they
+computed before them.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
 plain version in ``kernels/ref.py``. Each wrapper counts its calls that
@@ -47,12 +51,12 @@ def _lib():
     lib = library("paged_attention")
     if not getattr(lib, "_typed", False):
         lib.paged_prefill_attention_launch.argtypes = [
-            _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-            _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+            _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+            _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
         lib.paged_prefill_attention_launch.restype = _I
         lib.paged_attention_launch.argtypes = [
-            _I, _P, _P, _P, _P, _P, _P, _P, _P,
-            _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+            _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+            _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
         lib.paged_attention_launch.restype = _I
         lib.paged_span_keys.restype = _I
         if lib.paged_span_keys() != ref.SPAN_KEYS:
@@ -119,8 +123,27 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
+def _placement(page: int, pos_stride, pos_offset: int) -> tuple:
+    """(stride, offset) of the local slots; the kernel walks keys in
+    order, so a page's slots may not overlap the next page's."""
+    stride = page if pos_stride is None else int(pos_stride)
+    if stride < page:
+        raise ValueError(f"pos_stride {stride} < the pages' {page} slots")
+    return stride, int(pos_offset)
+
+
+def _stats_out(q, rows_shape, return_stats: bool) -> tuple:
+    """The f32 (m, l) outputs and their pointers (0 without stats)."""
+    if not return_stats:
+        return None, None, None, None
+    m = torch.empty(rows_shape, dtype=torch.float32, device=q.device)
+    l = torch.empty(rows_shape, dtype=torch.float32, device=q.device)
+    return m, l, m.data_ptr(), l.data_ptr()
+
+
 def paged_prefill_attention(q, k_pages, v_pages, block_tables, q_start,
-                            q_lens):
+                            q_lens, *, pos_stride=None, pos_offset: int = 0,
+                            return_stats: bool = False):
     """q [B, Q, Hq, D]; k_pages/v_pages [P, page, Hkv, D];
     block_tables [B, pages_per_seq] i32; q_start/q_lens [B] i32
     -> [B, Q, Hq, D].
@@ -129,53 +152,69 @@ def paged_prefill_attention(q, k_pages, v_pages, block_tables, q_start,
     attends over positions ``<= q_start[b] + t`` (history plus the chunk
     prefix, whose K/V the caller scattered into the pages before the
     call). Tokens ``t >= q_lens[b]`` are padding; callers discard them.
+    Local slot ``j`` of table column ``p`` sits at ``p * pos_stride +
+    pos_offset + j`` (default: ``pos_stride = page``, the identity).
+    With ``return_stats`` the result is ``(out, m, l)``, m/l [B, Q, Hq]
+    f32: the row's running max and softmax denominator over the keys it
+    saw (``m = ref.NEG_INF``, ``l = 0`` and a zero output for a row that
+    saw none).
     """
     if q.device.type == "cpu":
-        return ref.paged_prefill_attention_ref(q, k_pages, v_pages,
-                                               block_tables, q_start, q_lens)
+        return ref.paged_prefill_attention_ref(
+            q, k_pages, v_pages, block_tables, q_start, q_lens,
+            pos_stride=pos_stride, pos_offset=pos_offset,
+            return_stats=return_stats)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     code, page, Hkv, D, pps = _check(
         q, k_pages, v_pages, block_tables,
         (("q_start", q_start), ("q_lens", q_lens)))
+    stride, offset = _placement(page, pos_stride, pos_offset)
     B, Q, Hq, _ = q.shape
     out = torch.empty_like(q)
     o_part, ml_part, nspan = split_scratch(q, Q, Hkv, D, page, pps)
+    m, l, m_ptr, l_ptr = _stats_out(q, (B, Q, Hq), return_stats)
     err = _lib().paged_prefill_attention_launch(
         code, q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), q_start.data_ptr(), q_lens.data_ptr(),
-        out.data_ptr(), o_part.data_ptr(), ml_part.data_ptr(), B, Q, Hq, Hkv,
-        D, page, pps, nspan, 1.0 / math.sqrt(D),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        out.data_ptr(), o_part.data_ptr(), ml_part.data_ptr(), m_ptr, l_ptr,
+        B, Q, Hq, Hkv, D, page, pps, nspan, stride, offset,
+        1.0 / math.sqrt(D), torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "paged_prefill_attention")
     paged_prefill_attention.launches += 1
-    return out
+    return (out, m, l) if return_stats else out
 
 
-def paged_attention(q, k_pages, v_pages, block_tables, seq_lens):
+def paged_attention(q, k_pages, v_pages, block_tables, seq_lens, *,
+                    pos_stride=None, pos_offset: int = 0,
+                    return_stats: bool = False):
     """q [B, Hq, D]; k_pages/v_pages [P, page, Hkv, D];
     block_tables [B, pages_per_seq] i32; seq_lens [B] i32 -> [B, Hq, D].
-    One query per row, attending over its first ``seq_lens[b]``
-    positions."""
+    One query per row, attending over the positions ``< seq_lens[b]``;
+    the options are ``paged_prefill_attention``'s, with m/l [B, Hq]."""
     if q.device.type == "cpu":
-        return ref.paged_attention_ref(q, k_pages, v_pages, block_tables,
-                                       seq_lens)
+        return ref.paged_attention_ref(
+            q, k_pages, v_pages, block_tables, seq_lens,
+            pos_stride=pos_stride, pos_offset=pos_offset,
+            return_stats=return_stats)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     code, page, Hkv, D, pps = _check(q, k_pages, v_pages, block_tables,
                                      (("seq_lens", seq_lens),))
+    stride, offset = _placement(page, pos_stride, pos_offset)
     B, Hq, _ = q.shape
     out = torch.empty_like(q)
     o_part, ml_part, nspan = split_scratch(q, 1, Hkv, D, page, pps)
+    m, l, m_ptr, l_ptr = _stats_out(q, (B, Hq), return_stats)
     err = _lib().paged_attention_launch(
         code, q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-        o_part.data_ptr(), ml_part.data_ptr(), B, Hq, Hkv, D, page, pps,
-        nspan, 1.0 / math.sqrt(D),
+        o_part.data_ptr(), ml_part.data_ptr(), m_ptr, l_ptr, B, Hq, Hkv, D,
+        page, pps, nspan, stride, offset, 1.0 / math.sqrt(D),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "paged_attention")
     paged_attention.launches += 1
-    return out
+    return (out, m, l) if return_stats else out
 
 
 paged_prefill_attention.launches = 0

@@ -24,21 +24,33 @@ Real engine demo (the scripted multi-turn conversation, no gateway):
 ``--config qwen2-1.5b`` (the default for live and real) serves the
 published width (28 layers, bf16) with random weights drawn from
 ``--seed``; ``tiny`` is the reduced two-layer f32 variant the CPU tests
-use. Both run on ``--device cuda`` unless asked for the CPU. The flags
-and their rejections are the reference launcher's; the sharded plane
-(``--mesh``), kernel autotune (``--autotune``) and the replica fleet
-(``--replicas`` above 1, ``--workload handoff``) are not ported yet and
-are rejected naming their ROADMAP item.
+use. Both run on ``--device cuda`` unless asked for the CPU.
+
+``--mesh DxM`` (real and live) shards the paged KV plane over D x M
+ranks (DESIGN.md §9): the launcher builds the kernels, spawns the ranks
+(``launch/mesh.py``), each builds the same weights from ``--seed``, and
+rank 0 serves and prints. Rank r runs on ``cuda:(r % device_count)``;
+ranks that share a card talk gloo through host memory:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --engine real \
+      --device cpu --config tiny --mesh 1x2
+
+The flags and their rejections are the reference launcher's; kernel
+autotune (``--autotune``) and the replica fleet (``--replicas`` above 1,
+``--workload handoff``) are not ported yet and are rejected naming
+their ROADMAP item.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 
 import torch
 
 from repro_torch.configs import get_config, reduced
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import parse_mesh, spawn
 from repro_torch.models.model import init_params
 
 # the demo's page counts and per-page transfer times are the reference
@@ -106,6 +118,61 @@ def _not_ported(ap, flag: str, item: str) -> None:
     ap.error(f"{flag} is not ported yet (ROADMAP.md queue 1 item {item})")
 
 
+def _serve(mesh_spec, device: str, fn) -> None:
+    """``fn(None)`` here, or ``fn(mesh)`` on every rank of a ``DxM``
+    mesh spawned from here (the kernels built first, so the ranks only
+    load them)."""
+    if mesh_spec is None:
+        fn(None)
+        return
+    if resolve_device(device).type == "cuda":
+        from repro_torch.kernels import _build
+        _build.build()
+    spawn(mesh_spec, fn, device=device)
+
+
+def _print(s: dict, as_json: bool) -> None:
+    if as_json:
+        print(json.dumps(s, indent=1))
+    else:
+        for k, v in s.items():
+            print(f"{k:20s} {v:.4f}" if isinstance(v, float)
+                  else f"{k:20s} {v}")
+
+
+def _real(config: str, device, seed: int, fused_step: bool, as_json: bool,
+          mesh) -> None:
+    """--engine real on this process (or this rank of ``mesh``)."""
+    from repro_torch.serving.paged_engine import run_multiturn_demo
+    cfg, params, kw = build_demo(config, mesh.device if mesh else device,
+                                 seed)
+    out = run_multiturn_demo(
+        cfg, params, fused_step=fused_step, mesh=mesh,
+        log=(lambda *_a, **_k: None) if as_json else print, **kw)
+    if out is not None and as_json:
+        print(json.dumps(out, indent=1, default=str))
+
+
+def _live(config: str, device, seed: int, kw: dict, as_json: bool,
+          mesh) -> None:
+    """--engine live on this process (or this rank of ``mesh``)."""
+    from repro_torch.serving.gateway import run_gateway_workload
+    cfg, params, dev = build_model(config, mesh.device if mesh else device,
+                                   seed)
+    m, gw = run_gateway_workload(model=(cfg, params), device=dev, seed=seed,
+                                 mesh=mesh, **kw)
+    if gw is None:                       # a follower rank
+        return
+    eng = gw.engine
+    s = m.summary()
+    s["rounds"] = gw.rounds
+    s["max_over_frontier_s"] = gw.max_over_frontier_s
+    off = eng.transfer.stats.reload_pages_off_path
+    on = eng.transfer.stats.reload_pages_on_path
+    s["transfer_overlap_frac"] = off / (off + on) if off + on else 0.0
+    _print(s, as_json)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--engine", default="sim",
@@ -150,7 +217,8 @@ def main(argv=None) -> None:
                          "plane")
     ap.add_argument("--mesh", default=None, metavar="DxM",
                     help="real/live engines: shard the paged KV plane "
-                         "(not ported yet)")
+                         "over D x M ranks, e.g. 1x2 (DESIGN.md §9); "
+                         "the launcher spawns the ranks, rank 0 prints")
     # --engine live only
     ap.add_argument("--prefix-cache", default=None,
                     action=argparse.BooleanOptionalAction,
@@ -219,7 +287,10 @@ def main(argv=None) -> None:
                  "per-token control; the simulator has no data plane "
                  "(use --engine real|live)")
     if args.mesh is not None:
-        _not_ported(ap, "--mesh (the sharded page plane)", "3")
+        try:
+            parse_mesh(args.mesh)
+        except ValueError as e:
+            ap.error(str(e))
     if args.engine != "sim" and args.model is not None:
         ap.error("--model only applies to --engine sim; live/real serve "
                  "--config")
@@ -242,13 +313,8 @@ def main(argv=None) -> None:
                 f"take {', '.join(given)}; use --engine live (real data "
                 f"plane under load) or --engine sim (paper-scale "
                 f"simulation)")
-        from repro_torch.serving.paged_engine import run_multiturn_demo
-        cfg, params, kw = build_demo(config, device, args.seed)
-        out = run_multiturn_demo(
-            cfg, params, fused_step=args.fused_step,
-            log=(lambda *_a, **_k: None) if args.json else print, **kw)
-        if args.json:
-            print(json.dumps(out, indent=1, default=str))
+        _serve(args.mesh, device, functools.partial(
+            _real, config, device, args.seed, args.fused_step, args.json))
         return
 
     # shared workload defaults for sim and live
@@ -294,18 +360,16 @@ def main(argv=None) -> None:
         if workload == "handoff":
             _not_ported(ap, "--workload handoff (it needs the replica "
                         "fleet)", "5")
-        from repro_torch.serving.gateway import run_gateway_workload
         live = LIVE[config]
-        cfg, params, dev = build_model(config, device, args.seed)
         page = live["page_size"]
         slots = args.slots if args.slots is not None else 8
-        m, gw = run_gateway_workload(
+        kw = dict(
             policy=policies[system], kind=workload, sessions=sessions,
-            barge_in=barge_in, seed=args.seed,
+            barge_in=barge_in,
             scale=(args.clock_scale
                    if args.clock_scale is not None else live["scale"]),
-            slots=slots, num_pages=args.kv_pages, model=(cfg, params),
-            device=dev, page_size=page, prefill_chunk=PREFILL_CHUNK,
+            slots=slots, num_pages=args.kv_pages, page_size=page,
+            prefill_chunk=PREFILL_CHUNK,
             round_token_budget=(live["round_token_budget"]
                                 or slots + PREFILL_CHUNK),
             preload_chunks=(args.preload_chunks
@@ -328,13 +392,9 @@ def main(argv=None) -> None:
             max_turns=live["max_turns"],
             audio_per_token_s=live["audio_per_token_s"],
             frontier_cap_s=3.0 if system == "liveserve" else None)
-        eng = gw.engine
-        s = m.summary()
-        s["rounds"] = gw.rounds
-        s["max_over_frontier_s"] = gw.max_over_frontier_s
-        off = eng.transfer.stats.reload_pages_off_path
-        on = eng.transfer.stats.reload_pages_on_path
-        s["transfer_overlap_frac"] = off / (off + on) if off + on else 0.0
+        _serve(args.mesh, device, functools.partial(
+            _live, config, device, args.seed, kw, args.json))
+        return
     else:
         from repro_torch.serving.costmodel import PIPELINES
         from repro_torch.serving.simulator import run_sim
@@ -357,12 +417,7 @@ def main(argv=None) -> None:
         m = run_sim(pipe, wl, until=3600.0, **systems[system])
         s = m.summary()
 
-    if args.json:
-        print(json.dumps(s, indent=1))
-    else:
-        for k, v in s.items():
-            print(f"{k:20s} {v:.4f}" if isinstance(v, float)
-                  else f"{k:20s} {v}")
+    _print(s, args.json)
 
 
 if __name__ == "__main__":

@@ -156,11 +156,15 @@ class LayerStackedPages:
     A host copy is the stacked ``[2, L, page, Hkv, hd]`` (k, v) contents
     of one physical page as a CPU tensor of the store's dtype, so every
     dtype (bf16 included, which numpy lacks) round-trips bit for bit.
+    With a ``layout`` (``distributed.paged.PagedKVLayout``) the store is
+    one rank's shard, and ``write`` takes global pages and keeps its
+    shard of them.
     """
 
-    def __init__(self, k: torch.Tensor, v: torch.Tensor):
+    def __init__(self, k: torch.Tensor, v: torch.Tensor, layout=None):
         self.k = k
         self.v = v
+        self.layout = layout
 
     def __getitem__(self, phys: int) -> torch.Tensor:
         return torch.stack([self.k[:, phys], self.v[:, phys]]).cpu()
@@ -176,6 +180,8 @@ class LayerStackedPages:
         idx = torch.as_tensor(phys, dtype=torch.int64).reshape(-1) \
             .to(self.k.device)
         stack = stack.to(self.k.device, self.k.dtype)
+        if self.layout is not None:
+            stack = self.layout.shard(stack)
         self.k.index_copy_(1, idx, stack[:, 0].movedim(0, 1))
         self.v.index_copy_(1, idx, stack[:, 1].movedim(0, 1))
 

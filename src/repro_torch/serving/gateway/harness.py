@@ -56,17 +56,11 @@ def _warm_engine(eng, prefill_chunk: int = 1) -> None:
     scratch page."""
     from repro_torch.serving.block_tables import assemble, assemble_fused
     from repro_torch.serving.paged_engine import _q_bucket
-    B, i64 = eng.slots, torch.int64
+    B = eng.slots
     if not eng.fused_step:
         tabs = assemble(eng.pool, [None] * B, eng.pages_per_seq,
                         eng.scratch_page)
-        out = eng._step_fn(
-            eng.cfg, eng.params, eng._tensor(np.zeros((B,), np.int64)),
-            eng._tensor(tabs.positions), eng.k_pages, eng.v_pages,
-            eng._tensor(tabs.block_tables), eng._tensor(tabs.seq_lens),
-            eng._tensor(tabs.write_page, i64),
-            eng._tensor(tabs.write_slot, i64))
-        out.cpu()                            # waits for the device
+        eng._step(np.zeros((B,), np.int64), tabs).cpu()  # waits for it
         return
     spec = eng.spec_decode > 0
     top = _q_bucket(max(prefill_chunk, 1 + eng.spec_decode))
@@ -74,12 +68,7 @@ def _warm_engine(eng, prefill_chunk: int = 1) -> None:
     while True:
         tabs = assemble_fused(eng.pool, [None] * B, q, eng.pages_per_seq,
                               eng.scratch_page)
-        out = eng._fused_fn(
-            eng.cfg, eng.params, eng._tensor(np.zeros((B, q), np.int64)),
-            eng._tensor(tabs.positions), eng.k_pages, eng.v_pages,
-            eng._tensor(tabs.block_tables), eng._tensor(tabs.q_start),
-            eng._tensor(tabs.q_lens), eng._tensor(tabs.write_pages, i64),
-            eng._tensor(tabs.write_slots, i64), spec=spec)
+        out = eng._fused(np.zeros((B, q), np.int64), tabs)
         (out[0] if spec else out).cpu()      # waits for the device
         if q >= top:
             break
@@ -100,9 +89,14 @@ def build_gateway(*, policy: str = "liveserve", scale: float = 8.0,
                   prefix_cache: bool = False,
                   kv_quant: str = "fp32",
                   spec_decode: int = 0,
-                  proposer=None) -> RealtimeGateway:
+                  proposer=None,
+                  mesh=None) -> Optional[RealtimeGateway]:
     """``model``: ``(cfg, params)`` with params on ``device``; the
-    default is ``tiny_model(seed)``. ``preload_chunks``: transfer chunks
+    default is ``tiny_model(seed)``. ``mesh``: a ``ServingMesh`` shards
+    the engine's page store (DESIGN.md §9); every rank calls this with
+    the same arguments, the leader (rank 0) gets the gateway, and every
+    other rank follows the leader's device operations here until the
+    leader releases it, then gets None. ``preload_chunks``: transfer chunks
     each round may drain between decode sub-batches (the serve flag of
     the same name; DESIGN.md §10). ``fused_step=False`` serves on the
     per-token differential-control plane (one step per token —
@@ -123,7 +117,10 @@ def build_gateway(*, policy: str = "liveserve", scale: float = 8.0,
                               prefix_cache=prefix_cache,
                               kv_quant=kv_quant,
                               spec_decode=spec_decode,
-                              proposer=proposer)
+                              proposer=proposer, mesh=mesh)
+    if mesh is not None and not mesh.is_leader:
+        eng.follow()
+        return None
     _warm_engine(eng, min(prefill_chunk, round_token_budget))
     gw = RealtimeGateway(eng, cfg=GatewayConfig(
         policy=policy, audio_per_token_s=audio_per_token_s,
@@ -149,7 +146,10 @@ def run_gateway_workload(*, policy: str = "liveserve",
     (metrics, gateway). Pass ``gateway`` to use a pre-built (and
     pre-warmed, but not yet run) stack; otherwise ``gw_kw`` goes to
     ``build_gateway``. A gateway serves exactly one workload — its
-    session registry and metrics are single-run state.
+    session registry and metrics are single-run state. On a mesh
+    (``mesh=`` in ``gw_kw``, or a gateway built with one) the workload
+    runs on the leader, which releases the follower ranks when it ends;
+    a follower rank gets ``(None, None)``.
     """
     if gateway is not None:
         assert not gw_kw, "gateway already built; engine kwargs ignored"
@@ -161,6 +161,8 @@ def run_gateway_workload(*, policy: str = "liveserve",
     else:
         gw = build_gateway(policy=policy, scale=scale, seed=seed,
                            **gw_kw)
+        if gw is None:                   # a follower rank, released
+            return None, None
     wl = WorkloadConfig(kind=kind, num_sessions=sessions, seed=seed,
                         p_barge_in=barge_in, arrival=arrival,
                         rate_rps=rate_rps,
@@ -197,5 +199,8 @@ def run_gateway_workload(*, policy: str = "liveserve",
         gw.stop()
         await serve                      # surface late serve errors
 
-    asyncio.run(main())
+    try:
+        asyncio.run(main())
+    finally:
+        gw.engine.release_followers()
     return gw.metrics(), gw

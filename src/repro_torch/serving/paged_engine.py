@@ -44,12 +44,25 @@ control:
   the verify step's per-position argmax accepts the longest matching
   prefix, so the committed stream is the greedy one.
 
+``mesh=`` (a ``launch.mesh.ServingMesh``; DESIGN.md §9) shards the page
+store over the mesh's 'model' axis by ``distributed.paged.PagedKVLayout``.
+Every rank builds the engine with the same arguments and weights. Rank 0,
+the leader, alone runs the control plane (pool, KV manager, scheduler,
+any gateway in front): each device operation it performs (a step, an
+offload gather, a reload scatter, a copy-on-write copy, a dense graft) it
+first sends to the other ranks as one small command, and every rank then
+runs it on its own shard. The other ranks run ``follow()`` until the
+leader calls ``release_followers()``. Offload gathers a page's shards to
+the leader and reload broadcasts the global chunk, so host copies (and
+the int8 codec's scales) are the single-device engine's.
+
 Out of this slice (each raises ``NotImplementedError`` naming its
-ROADMAP item): ``mesh``, the moe and vlm families and the cross-replica
-migration methods.
+ROADMAP item): the moe and vlm families and the cross-replica migration
+methods.
 """
 from __future__ import annotations
 
+import hashlib
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
@@ -90,7 +103,7 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 # ======================================================================
 def paged_decode_step(cfg, params, tokens, positions, k_pages, v_pages,
                       block_tables, seq_lens, write_page, write_slot,
-                      *, plain: bool = False):
+                      *, plain: bool = False, plane=None):
     """One token per batch row through the paged KV store.
 
     tokens/positions [B] int; write_page/write_slot [B] int64;
@@ -101,6 +114,11 @@ def paged_decode_step(cfg, params, tokens, positions, k_pages, v_pages,
     ``plain`` (tests and the chip check only) attends through the
     kernel's plain version on any device, to hold the kernel's step
     against it; it is never a fallback.
+
+    ``plane`` swaps the page write and attention: None is the
+    single-device path; a ``distributed.paged.PagedKVLayout`` makes this
+    one rank's step on its shard of the pages (DESIGN.md §9). Same body
+    either way, so sharded and single-device engines cannot drift.
     """
     attend = ref.paged_attention_ref if plain else paged_attention
     x = _embed(cfg, params, tokens[:, None])
@@ -109,9 +127,16 @@ def paged_decode_step(cfg, params, tokens, positions, k_pages, v_pages,
         h = L.rms_norm(x, lp["ln1"], cfg.rms_eps)
         q, k, v = L.attn_project_qkv(lp["attn"], cfg, h, pos)
         kc, vc = k_pages[i], v_pages[i]
-        kc[write_page, write_slot] = k[:, 0]
-        vc[write_page, write_slot] = v[:, 0]
-        a = attend(q[:, 0].contiguous(), kc, vc, block_tables, seq_lens)
+        if plane is None:
+            kc[write_page, write_slot] = k[:, 0]
+            vc[write_page, write_slot] = v[:, 0]
+            a = attend(q[:, 0].contiguous(), kc, vc, block_tables,
+                       seq_lens)
+        else:
+            plane.write_token(kc, vc, k[:, 0], v[:, 0], write_page,
+                              write_slot)
+            a = plane.attend(q[:, 0].contiguous(), kc, vc, block_tables,
+                             seq_lens)
         x = x + L.attn_output(lp["attn"], a[:, None])
         x = _mlp_block(cfg, lp, x)
     return _logits(cfg, params, x)[:, 0]
@@ -120,7 +145,7 @@ def paged_decode_step(cfg, params, tokens, positions, k_pages, v_pages,
 def paged_fused_step(cfg, params, tokens, positions, k_pages, v_pages,
                      block_tables, q_start, q_lens, write_pages,
                      write_slots, *, plain: bool = False,
-                     spec: bool = False):
+                     spec: bool = False, plane=None):
     """One fused round: up to Q consecutive tokens per batch row in one
     pass over the layers.
 
@@ -138,7 +163,7 @@ def paged_fused_step(cfg, params, tokens, positions, k_pages, v_pages,
     then every query token attends causally over history + chunk prefix
     through ``paged_prefill_attention`` — so a PREFILL slot's C-token
     grant and every DECODE slot's single token share one step.
-    ``plain`` is as in ``paged_decode_step``.
+    ``plain`` and ``plane`` are as in ``paged_decode_step``.
     """
     attend = ref.paged_prefill_attention_ref if plain \
         else paged_prefill_attention
@@ -147,9 +172,15 @@ def paged_fused_step(cfg, params, tokens, positions, k_pages, v_pages,
         h = L.rms_norm(x, lp["ln1"], cfg.rms_eps)
         q, k, v = L.attn_project_qkv(lp["attn"], cfg, h, positions)
         kc, vc = k_pages[i], v_pages[i]
-        kc[write_pages, write_slots] = k
-        vc[write_pages, write_slots] = v
-        a = attend(q.contiguous(), kc, vc, block_tables, q_start, q_lens)
+        if plane is None:
+            kc[write_pages, write_slots] = k
+            vc[write_pages, write_slots] = v
+            a = attend(q.contiguous(), kc, vc, block_tables, q_start,
+                       q_lens)
+        else:
+            plane.write_chunk(kc, vc, k, v, write_pages, write_slots)
+            a = plane.attend_chunk(q.contiguous(), kc, vc, block_tables,
+                                   q_start, q_lens)
         x = x + L.attn_output(lp["attn"], a)
         x = _mlp_block(cfg, lp, x)
     last = (q_lens.long() - 1).clamp(min=0)
@@ -165,6 +196,32 @@ def paged_fused_step(cfg, params, tokens, positions, k_pages, v_pages,
     # only each row's last valid token's logits are consumed; slice
     # before the unembed so the step never materialises [B, Q, V]
     return _logits(cfg, params, x[rows, last][:, None])[:, 0]
+
+
+# the device operations, each a command a mesh's leader sends to every
+# rank before running it on its own shard (``PagedRealtimeEngine._device``)
+_OP_STOP, _OP_STEP, _OP_FUSED, _OP_OFFLOAD, _OP_RELOAD, _OP_COW, \
+    _OP_DENSE = range(7)
+
+
+def _weights_digest(params) -> int:
+    """A 48-bit digest of a strided sample of every weight, to check that
+    all ranks of a mesh hold the same weights."""
+    h = hashlib.sha256()
+
+    def walk(t):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k])
+        elif isinstance(t, (list, tuple)):
+            for x in t:
+                walk(x)
+        else:
+            flat = t.detach().reshape(-1)
+            sample = flat[::max(1, flat.numel() // 4096)]
+            h.update(sample.float().cpu().numpy().tobytes())
+    walk(params)
+    return int.from_bytes(h.digest()[:6], "little")
 
 
 def _q_bucket(n: int) -> int:
@@ -230,8 +287,6 @@ class PagedRealtimeEngine:
         assert kv_policy in ("next_use", "lru"), \
             "the physical data plane needs an offload tier ('none' " \
             "discards pages; use the simulator for that baseline)"
-        if mesh is not None:
-            raise _not_ported("mesh= (the sharded page plane)", "3")
         # KV wire format (DESIGN.md §14): int8 block-quantizes every host
         # copy on the offload path; fp32 is the bit-exact control
         self.codec = KVWireCodec(kv_quant)
@@ -239,6 +294,20 @@ class PagedRealtimeEngine:
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "
                              f"the engine on {self.device}")
+        # the sharded page store (DESIGN.md §9): pages shard KV heads (or
+        # page slots) over the mesh's 'model' axis; weights, tables and
+        # the host control plane stay replicated
+        self.mesh = mesh
+        self.layout = None
+        if mesh is not None:
+            from repro_torch.distributed.paged import PagedKVLayout
+            if mesh.device.type != self.device.type:
+                raise ValueError(f"the mesh runs on {mesh.device}, the "
+                                 f"engine on {self.device}")
+            self.device = mesh.device
+            self.layout = PagedKVLayout(cfg, mesh, page_size)
+            if not mesh.agree(_weights_digest(params)):
+                raise ValueError("the mesh's ranks hold different weights")
         self.cfg = cfg
         self.slots = slots
         self.page_size = page_size
@@ -256,6 +325,8 @@ class PagedRealtimeEngine:
         dtype = cfg.activation_dtype()
         shape = (cfg.num_layers, self.num_pages + 1, page_size,
                  cfg.num_kv_heads, hd)
+        if self.layout is not None:
+            shape = self.layout.local_shape(shape)   # this rank's shard
         self.k_pages = torch.zeros(shape, dtype=dtype, device=self.device)
         self.v_pages = torch.zeros(shape, dtype=dtype, device=self.device)
         itemsize = torch.tensor([], dtype=dtype).element_size()
@@ -320,6 +391,9 @@ class PagedRealtimeEngine:
         self.slot_state: Dict[int, Optional[PagedSlot]] = {
             i: None for i in range(slots)}
         self._step_fn = paged_decode_step
+        if self.layout is not None:
+            from repro_torch.distributed.paged import make_sharded_step
+            self._step_fn = make_sharded_step(self.layout)
         # the fused token-budget plane: one step per round, C-token
         # prefill chunks included. fused_step=False keeps the per-token
         # plane as the differential control. With speculation on, every
@@ -327,6 +401,10 @@ class PagedRealtimeEngine:
         # per-position argmaxes).
         self.fused_step = fused_step
         self._fused_fn = paged_fused_step if fused_step else None
+        if self.layout is not None and fused_step:
+            from repro_torch.distributed import paged as dp
+            self._fused_fn = (dp.make_sharded_spec_step if self.spec_decode
+                              else dp.make_sharded_fused_step)(self.layout)
         # shared-prefix KV (DESIGN.md §13): a radix index over committed
         # pages + refcounted attach/COW in the pool; prefix_cache=False
         # keeps private pages as the differential twin
@@ -460,8 +538,9 @@ class PagedRealtimeEngine:
 
     def _io_reload_chunk(self, sid: str, lis: List[int]) -> None:
         """Physically land one reload chunk. The host stack is staged
-        to the device and only that copy is timed for the wall-time
-        measurement; the pool then scatters it in place."""
+        to the device (and, on a mesh, broadcast to every rank) and only
+        that is timed for the wall-time measurement; the pool then
+        scatters it in place, each rank its shard."""
         s = self.pool.seq(sid)
         host = torch.stack([self.codec.decode(s.offloaded[li])
                             for li in lis])
@@ -469,10 +548,11 @@ class PagedRealtimeEngine:
             host = host.pin_memory()
         t0 = time.perf_counter()
         staged = self._stage(host)
+        if self.mesh is not None:
+            self.mesh.send(_OP_RELOAD, [[s.pages[li] for li in lis]])
+            self.mesh.broadcast(staged)
         self.reload_wall_s.append(time.perf_counter() - t0)
-        self.pool.complete_reload(
-            sid, lis, LayerStackedPages(self.k_pages, self.v_pages),
-            staged=staged)
+        self.pool.complete_reload(sid, lis, self._store(), staged=staged)
         self._sync_page_counts(sid)
 
     def _io_offload_chunk(self, sid: str, lis: List[int]) -> None:
@@ -481,18 +561,130 @@ class PagedRealtimeEngine:
         store's dtype, so bf16 round-trips bit for bit), then free the
         slots (copy-then-free step 2)."""
         s = self.pool.seq(sid)
-        phys = torch.as_tensor([s.pages[li] for li in lis],
-                               dtype=torch.int64, device=self.device)
-        dev = torch.stack([self.k_pages.index_select(1, phys),
-                           self.v_pages.index_select(1, phys)]) \
-            .movedim(2, 0)                      # [n, 2, L, page, Hkv, hd]
-        host = torch.empty(dev.shape, dtype=dev.dtype,
-                           pin_memory=self._pinned)
-        host.copy_(dev)               # blocking: the copies are durable
+        host = self._device(_OP_OFFLOAD, [s.pages[li] for li in lis])
         self.pool.complete_offload(
             sid, {li: self.codec.encode(host[i])
                   for i, li in enumerate(lis)})
         self._sync_page_counts(sid)
+
+    # ---------------------------------------------------- device plane
+    # Every touch of the page store is one of the operations below. On
+    # a mesh the leader sends each to the other ranks first (``_device``)
+    # and every rank runs it on its shard; the follower ranks loop in
+    # ``follow``. The arguments are host integer arrays, so the command
+    # carries them as they are.
+    def _device(self, op: int, *arrays):
+        if self.mesh is not None:
+            assert self.mesh.is_leader, "only the leader sends operations"
+            self.mesh.send(op, arrays)
+        return self._run_op(op, arrays)
+
+    def _run_op(self, op: int, arrays):
+        run = {_OP_STEP: self._op_step, _OP_FUSED: self._op_fused,
+               _OP_OFFLOAD: self._op_offload, _OP_RELOAD: self._op_reload,
+               _OP_COW: self._op_cow, _OP_DENSE: self._op_dense}[op]
+        return run(*arrays)
+
+    def follow(self) -> None:
+        """A follower rank's loop: run the leader's device operations on
+        this rank's shard of the pages until ``release_followers``."""
+        assert self.mesh is not None and not self.mesh.is_leader, \
+            "only a mesh's follower ranks follow"
+        while True:
+            op, arrays = self.mesh.recv()
+            if op == _OP_STOP:
+                return
+            self._run_op(op, arrays)
+
+    def release_followers(self) -> None:
+        """The leader is done: every follower's ``follow`` returns."""
+        if self.mesh is not None and self.mesh.is_leader:
+            self.mesh.send(_OP_STOP, [])
+
+    def _store(self) -> LayerStackedPages:
+        return LayerStackedPages(self.k_pages, self.v_pages, self.layout)
+
+    def _step(self, tokens: np.ndarray, tabs: BatchTables) -> torch.Tensor:
+        """One per-token step of the fixed batch; logits [B, V]."""
+        return self._device(_OP_STEP, tokens, tabs.positions,
+                            tabs.block_tables, tabs.seq_lens,
+                            tabs.write_page, tabs.write_slot)
+
+    def _fused(self, tokens: np.ndarray, tabs: FusedBatchTables):
+        """One fused round of the fixed batch: the step's output."""
+        return self._device(_OP_FUSED, tokens, tabs.positions,
+                            tabs.block_tables, tabs.q_start, tabs.q_lens,
+                            tabs.write_pages, tabs.write_slots)
+
+    def _op_step(self, tokens, positions, tables, seq_lens, page, slot):
+        i32, i64 = torch.int32, torch.int64
+        return self._step_fn(
+            self.cfg, self.params, self._tensor(tokens, i64),
+            self._tensor(positions, i32), self.k_pages, self.v_pages,
+            self._tensor(tables, i32), self._tensor(seq_lens, i32),
+            self._tensor(page, i64), self._tensor(slot, i64))
+
+    def _op_fused(self, tokens, positions, tables, q_start, q_lens, pages,
+                  slots):
+        i32, i64 = torch.int32, torch.int64
+        return self._fused_fn(
+            self.cfg, self.params, self._tensor(tokens, i64),
+            self._tensor(positions, i32), self.k_pages, self.v_pages,
+            self._tensor(tables, i32), self._tensor(q_start, i32),
+            self._tensor(q_lens, i32), self._tensor(pages, i64),
+            self._tensor(slots, i64), spec=self.spec_decode > 0)
+
+    def _op_offload(self, phys):
+        """Gather pages ``phys`` to the host as [n, 2, L, page, Hkv, hd]
+        (the leader's result; a follower only adds its shard)."""
+        idx = self._tensor(phys, torch.int64)
+        dev = torch.stack([self.k_pages.index_select(1, idx),
+                           self.v_pages.index_select(1, idx)]) \
+            .movedim(2, 0)                      # [n, 2, L, page, Hkv, hd]
+        if self.layout is not None:
+            dev = self.layout.unshard(dev)
+            if not self.mesh.is_leader:
+                return None
+        host = torch.empty(dev.shape, dtype=dev.dtype,
+                           pin_memory=self._pinned)
+        host.copy_(dev)               # blocking: the copies are durable
+        return host
+
+    def _op_reload(self, phys):
+        """A follower's side of ``_io_reload_chunk``: receive the global
+        chunk and scatter its shard into pages ``phys``."""
+        chunk = torch.empty((len(phys), 2, self.cfg.num_layers,
+                             self.page_size, self.cfg.num_kv_heads,
+                             self.cfg.resolved_head_dim),
+                            dtype=self.k_pages.dtype, device=self.device)
+        self.mesh.broadcast(chunk)
+        self._store().write(phys, chunk)
+
+    def _op_cow(self, pair):
+        """Copy page ``pair[0]`` to page ``pair[1]`` across all layers,
+        in place: the steps write through ``k_pages[i]`` views of this
+        one store, so it is never rebound."""
+        old, new = (int(x) for x in pair)
+        dst = torch.tensor([new], dtype=torch.int64, device=self.device)
+        self.k_pages.index_copy_(1, dst, self.k_pages[:, old:old + 1])
+        self.v_pages.index_copy_(1, dst, self.v_pages[:, old:old + 1])
+
+    def _op_dense(self, prompt, phys):
+        """The dense turn-0 prefill of ``prompt`` (replicated on every
+        rank) grafted into pages ``phys``; logits [1, V]."""
+        npages = len(phys)
+        c1 = init_cache(self.cfg, 1, npages * self.page_size, self.device)
+        logits, c1 = prefill(self.cfg, self.params,
+                             self._tensor(prompt, torch.int64)[None, :], c1)
+        shape = (self.cfg.num_layers, npages, self.page_size,
+                 *c1["k"].shape[3:])
+        k, v = c1["k"][:, 0].reshape(shape), c1["v"][:, 0].reshape(shape)
+        if self.layout is not None:
+            k, v = self.layout.shard(k), self.layout.shard(v)
+        idx = self._tensor(phys, torch.int64)
+        self.k_pages.index_copy_(1, idx, k)
+        self.v_pages.index_copy_(1, idx, v)
+        return logits
 
     def drain_transfers(self, max_chunks: Optional[int] = None) -> int:
         """Complete up to ``max_chunks`` queued transfer chunks (both
@@ -601,11 +793,7 @@ class PagedRealtimeEngine:
             # an attached page became a private one
             kvs.shared_blocks -= 1
             kvs.hbm_blocks += 1
-        # in place: the steps write through k_pages[i] views of this one
-        # store, so it is never rebound
-        dst = torch.tensor([new], dtype=torch.int64, device=self.device)
-        self.k_pages.index_copy_(1, dst, self.k_pages[:, old:old + 1])
-        self.v_pages.index_copy_(1, dst, self.v_pages[:, old:old + 1])
+        self._device(_OP_COW, [old, new])
         self.cow_copies += 1
         self._refresh_shared_pins()
 
@@ -880,17 +1068,8 @@ class PagedRealtimeEngine:
         sid = sess.session_id
         P = int(prompt.shape[0])
         npages = self.pool.pages_for(P)
-        cap = npages * self.page_size
-        c1 = init_cache(self.cfg, 1, cap, self.device)
-        logits, c1 = prefill(self.cfg, self.params,
-                             self._tensor(prompt.astype(np.int64))[None, :],
-                             c1)
-        phys = self._tensor(np.asarray(self.pool.seq(sid).pages[:npages],
-                                       np.int64))
-        shape = (self.cfg.num_layers, npages, self.page_size,
-                 *c1["k"].shape[3:])
-        self.k_pages.index_copy_(1, phys, c1["k"][:, 0].reshape(shape))
-        self.v_pages.index_copy_(1, phys, c1["v"][:, 0].reshape(shape))
+        logits = self._device(_OP_DENSE, prompt,
+                              self.pool.seq(sid).pages[:npages])
         sess.kv_len = P
         sess.token_ids = [int(t) for t in prompt]
         self.clock.tick()
@@ -1307,11 +1486,10 @@ class PagedRealtimeEngine:
             self.drain_transfers(xfer_budget)
         return events
 
-    def _tensor(self, a: np.ndarray, dtype=None) -> torch.Tensor:
+    def _tensor(self, a, dtype) -> torch.Tensor:
         """One host array of the round's tables to the device."""
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        return t.to(self.device, dtype) if dtype is not None \
-            else t.to(self.device)
+        return torch.from_numpy(np.ascontiguousarray(a)) \
+            .to(self.device, dtype)
 
     def _run_rows(self, feeds: Dict[int, tuple]) -> Dict[int, np.ndarray]:
         """Run one step with `feeds[row] = (sid, token)`; other rows are
@@ -1323,14 +1501,7 @@ class PagedRealtimeEngine:
             tokens[i] = tok
         tabs: BatchTables = assemble(self.pool, rows, self.pages_per_seq,
                                      self.scratch_page)
-        i64 = torch.int64
-        logits = self._step_fn(
-            self.cfg, self.params, self._tensor(tokens),
-            self._tensor(tabs.positions), self.k_pages, self.v_pages,
-            self._tensor(tabs.block_tables), self._tensor(tabs.seq_lens),
-            self._tensor(tabs.write_page, i64),
-            self._tensor(tabs.write_slot, i64))
-        logits = logits.cpu().numpy()
+        logits = self._step(tokens, tabs).cpu().numpy()
         if self.logit_tap is not None:
             for i, (sid, _) in feeds.items():
                 self.logit_tap(sid, logits[i])
@@ -1352,14 +1523,7 @@ class PagedRealtimeEngine:
         tabs: FusedBatchTables = assemble_fused(
             self.pool, rows, q_tokens, self.pages_per_seq,
             self.scratch_page)
-        i64 = torch.int64
-        out = self._fused_fn(
-            self.cfg, self.params, self._tensor(tokens),
-            self._tensor(tabs.positions), self.k_pages, self.v_pages,
-            self._tensor(tabs.block_tables), self._tensor(tabs.q_start),
-            self._tensor(tabs.q_lens), self._tensor(tabs.write_pages, i64),
-            self._tensor(tabs.write_slots, i64),
-            spec=self.spec_decode > 0)
+        out = self._fused(tokens, tabs)
         out_rows = None
         if self.spec_decode > 0:
             logits, outs = out
@@ -1415,6 +1579,13 @@ class PagedRealtimeEngine:
     def check_invariants(self) -> None:
         """Pool/accounting consistency (exercised by tests)."""
         from collections import Counter
+        shape = (self.cfg.num_layers, self.num_pages + 1, self.page_size,
+                 self.cfg.num_kv_heads, self.cfg.resolved_head_dim)
+        if self.layout is not None:
+            shape = self.layout.local_shape(shape)
+        assert tuple(self.k_pages.shape) == shape \
+            and tuple(self.v_pages.shape) == shape, \
+            f"page store {tuple(self.k_pages.shape)} is not {shape}"
         # refcount conservation: every allocated page's refcount equals
         # its live block-table references, and zero-ref pages are
         # exactly the orphans the radix index holds
@@ -1477,7 +1648,7 @@ def run_multiturn_demo(cfg, params, *, slots: int = 2, page_size: int = 8,
                        pages_per_seq: int = 9, num_pages: int = 11,
                        pcie_gb_s: float = 0.01, token_scale: int = 1,
                        seed: int = 0, fused_step: bool = True,
-                       device="cuda", log=print) -> dict:
+                       device="cuda", mesh=None, log=print) -> dict:
     """An end-to-end conversation on the real data plane, walking the
     whole interaction mechanism (the JAX package's script, whose sizes
     are the defaults here):
@@ -1498,12 +1669,26 @@ def run_multiturn_demo(cfg, params, *, slots: int = 2, page_size: int = 8,
     of ``page_size = 8 * token_scale`` pages walks the same page counts;
     ``pcie_gb_s`` sets the modeled channel so a page's transfer time
     matches the script's. Returns per-turn stats for both sessions.
+    With ``mesh`` every rank calls this: the leader runs the script on
+    the sharded engine, the other ranks follow it and return None.
     """
     eng = PagedRealtimeEngine(cfg, params, slots=slots,
                               page_size=page_size,
                               pages_per_seq=pages_per_seq,
                               num_pages=num_pages, pcie_gb_s=pcie_gb_s,
-                              device=device, fused_step=fused_step)
+                              device=device, fused_step=fused_step,
+                              mesh=mesh)
+    if mesh is not None and not mesh.is_leader:
+        eng.follow()
+        return None
+    try:
+        return _demo_script(eng, cfg, token_scale, seed, log)
+    finally:
+        eng.release_followers()
+
+
+def _demo_script(eng, cfg, token_scale: int, seed: int, log) -> dict:
+    slots, page_size = eng.slots, eng.page_size
     rng = np.random.default_rng(seed)
 
     def n(tokens):
@@ -1513,7 +1698,8 @@ def run_multiturn_demo(cfg, params, *, slots: int = 2, page_size: int = 8,
         return rng.integers(0, cfg.vocab_size, size=n(tokens))
 
     log(f"engine: {cfg.name} slots={slots} page={page_size} "
-        f"pool={eng.num_pages} pages device={eng.device}")
+        f"pool={eng.num_pages} pages device={eng.device}"
+        + (f" layout={eng.layout}" if eng.layout else ""))
     # ---- alice turn 1: admitted, decoded to completion -------------
     eng.add_session("alice", prompt(28), max_new_tokens=n(10))
     eng.run_to_completion()

@@ -80,6 +80,53 @@ def test_cuda_kernels_match_plain(dtype):
         assert torch.equal(f[:, 0], d)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernel_options_match_plain(dtype):
+    """On the card: the slot-sharding options. Each page cut into 2 and
+    4 stripes, each stripe's kernel call (``pos_stride``, shifted starts,
+    stats) against the plain version, rows that see no key finite with
+    l = 0, ``pos_offset`` equal to the shift bitwise, and the decode
+    kernel the fused one's Q = 1 case bitwise with the options on."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the H100)")
+    dev, tol = torch.device("cuda"), TOL[dtype]
+    q, kp, vp, bt, qs, ql = (torch.from_numpy(a).to(dev) for a in
+                             _prefill_case(1, 3, 6, 12, 2, 128, 16, 20))
+    q, kp, vp = (x.to(TDT[dtype]) for x in (q, kp, vp))
+    for S in (2, 4):
+        n = 16 // S
+        for s in range(S):
+            ks, vs = (x[:, s * n:(s + 1) * n].contiguous() for x in (kp, vp))
+            args = (q, ks, vs, bt, qs - s * n, ql)
+            o, m, l = paged_prefill_attention(*args, pos_stride=16,
+                                              return_stats=True)
+            wo, wm, wl = tref.paged_prefill_attention_ref(
+                *args, pos_stride=16, return_stats=True)
+            _valid_close(o.float().cpu(), wo.float().cpu(), ql.cpu(), tol)
+            seen = wl > 0
+            assert torch.equal(l > 0, seen)
+            assert torch.isfinite(o).all() and (o[~seen] == 0).all()
+            assert (m[~seen] == tref.NEG_INF).all()
+            torch.testing.assert_close(m[seen], wm[seen], rtol=tol,
+                                       atol=tol)
+            torch.testing.assert_close(l[seen], wl[seen], rtol=tol,
+                                       atol=tol)
+            by_offset = paged_prefill_attention(
+                q, ks, vs, bt, qs, ql, pos_stride=16, pos_offset=s * n,
+                return_stats=True)
+            assert all(torch.equal(a, b) for a, b in zip(by_offset,
+                                                         (o, m, l)))
+            one = torch.ones_like(ql)
+            f = paged_prefill_attention(q[:, :1].contiguous(), ks, vs, bt,
+                                        qs - s * n, one, pos_stride=16,
+                                        return_stats=True)
+            d = paged_attention(q[:, 0].contiguous(), ks, vs, bt,
+                                qs + 1 - s * n, pos_stride=16,
+                                return_stats=True)
+            assert all(torch.equal(a[:, 0], b) for a, b in zip(f, d))
+
+
 def flash_case(seed, B, Hq, Hkv, Sq, Skv, D):
     """q [B, Hq, Sq, D], k/v [B, Hkv, Skv, D], standard normal."""
     rng = np.random.default_rng(seed)

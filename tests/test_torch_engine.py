@@ -323,13 +323,12 @@ def test_bf16_offload_reload_bit_exact():
     eng.check_invariants()
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(mesh=object()), "item 3"),
-])
-def test_out_of_slice_options_raise(tiny, kw, item):
+@pytest.mark.parametrize("family,item", [("moe", "item 6")])
+def test_out_of_slice_options_raise(tiny, family, item):
     _, _, tcfg, tp = tiny
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        tpe.PagedRealtimeEngine(tcfg, tp, device="cpu", **kw)
+        tpe.PagedRealtimeEngine(tcfg.replace(family=family), tp,
+                                device="cpu")
 
 
 def _drive_add_session(make, cfg, seed):
@@ -422,6 +421,11 @@ def test_port_imports_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    # the sharded page plane and its mesh are held to it too
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {"src/repro_torch/distributed/__init__.py",
+            "src/repro_torch/distributed/paged.py",
+            "src/repro_torch/launch/mesh.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]

@@ -6,9 +6,9 @@ These modules are framework-free copies (only their imports differ),
 so everything they produce is held to the reference exactly: the
 seeded sessions and turns field by field, the simulator's
 ``Metrics.summary()`` dict, and the launcher's JSON. The launcher keeps
-every argparse rejection of the reference, and rejects what the port
-has not ported yet (``--mesh``, ``--autotune``, ``--replicas`` above 1,
-``--workload handoff``) naming its ROADMAP item.
+every argparse rejection of the reference (``--mesh``'s included), and
+rejects what the port has not ported yet (``--autotune``, ``--replicas``
+above 1, ``--workload handoff``) naming its ROADMAP item.
 """
 import dataclasses
 import json
@@ -177,6 +177,8 @@ REJECTIONS = [
      "--spec-decode must be >= 0"),
     (["--engine", "live", "--spec-decode", "2", "--no-fused-step"],
      "cannot run on the per-token control plane"),
+    (["--engine", "live", "--mesh", "1xq"], "--mesh wants DxM"),
+    (["--engine", "real", "--mesh", "0x2"], "--mesh dims must be >= 1"),
 ]
 
 
@@ -191,8 +193,6 @@ def test_launcher_rejects_as_reference(argv, words, monkeypatch, capsys):
 
 # what the port has not ported yet: rejected before any model is built
 NOT_PORTED = [
-    (["--engine", "live", "--mesh", "1x8"], "--mesh", "3"),
-    (["--engine", "real", "--mesh", "2x4"], "--mesh", "3"),
     (["--engine", "live", "--autotune", "cache.json"], "--autotune", "4"),
     (["--engine", "live", "--replicas", "2"], "--replicas", "5"),
     (["--engine", "live", "--workload", "handoff"], "handoff", "5"),
