@@ -43,6 +43,19 @@ read just after:
   at M 4 (the decode kernel with stats, the dense graft) and phase
   (f3)'s replay at M 4 in f32, record for record the single-device
   run's; the ranks' launch counts are summed into the kernels' line;
+- (h) the replica fleet on qwen2-1.5b: three paged engines in this
+  process sharing the one set of weights, behind one gateway: (h1) the
+  fleet twin (``run_fleet_replay``) on a barge-free agent-handoff trace
+  in f32, its router decisions the ones the trace predicts, every
+  session's stream the single-replica run's, each migrated session's
+  pages read through the device plane bit for bit on both replicas,
+  the wire bytes those of the moved pages; (h2) the fleet twin in bf16
+  with barge-ins, a drained replica and pools that evict: every plan
+  done or cancelled as the decision log says, the drained replica
+  empty; (h3) the live fleet gateway (``run_fleet_workload``) serving 12
+  interactive sessions on the wall clock at scale 1 with a drained
+  replica's sessions live-migrating; (h4) the launcher's ``--replicas 3
+  --workload handoff``;
 
 and checks what comes out. Every phase is checked; any failure exits
 non-zero. The last line of standard output is
@@ -1339,13 +1352,14 @@ def install_eviction_oracle(kv):
     return violations
 
 
-def front_end_checks(tag, m, eng, wl, max_turns, apt,
+def front_end_checks(tag, m, engines, wl, max_turns, apt,
                      max_over_frontier_s) -> None:
     """What the trace determines, whatever the clock: every session
     completes, every clamped turn is recorded with a TTFP, the barged
     turns are the trace's, each session's turns complete in order, the
-    frontier cap holds to one token of audio, the engine's invariants
-    hold, and the turn records' reload split is the engine's."""
+    frontier cap holds to one token of audio, the engines' invariants
+    hold, and the turn records' reload split is the engines' (a fleet's
+    migrated session carries its turn stats to its destination)."""
     from repro_torch.serving.workload import generate
     trace = generate(wl)
     check(m.completed_sessions == wl.num_sessions,
@@ -1372,11 +1386,12 @@ def front_end_checks(tag, m, eng, wl, max_turns, apt,
           f"{tag}: turns completed out of order: {order}")
     check(max_over_frontier_s <= apt + 1e-6,
           f"{tag}: {max_over_frontier_s} s past the frontier cap")
-    eng.check_invariants()
+    for eng in engines:
+        eng.check_invariants()
     for field, key in (("reload_stall_s", "reload_stall_s"),
                        ("reload_off_path_s", "reload_off_path_s")):
         rec = sum(getattr(t, field) for t in m.turns)
-        stat = sum(st[key] for s in eng.sessions.values()
+        stat = sum(st[key] for eng in engines for s in eng.sessions.values()
                    for st in s.turn_stats)
         check(math.isclose(rec, stat, rel_tol=1e-9, abs_tol=1e-12),
               f"{tag}: records {field} {rec} != turn stats {stat}")
@@ -1433,7 +1448,7 @@ def live_phase(cfg, params, dev, policy: str) -> dict:
                         p_barge_in=LIVE_TRACE["barge_in"],
                         arrival=LIVE_TRACE["arrival"],
                         rate_rps=LIVE_TRACE["rate_rps"])
-    front_end_checks(tag, m, eng, wl, LIVE_TRACE["max_turns"], LIVE_APT,
+    front_end_checks(tag, m, [eng], wl, LIVE_TRACE["max_turns"], LIVE_APT,
                      gw.max_over_frontier_s)
     s = m.summary()
     st = eng.transfer.stats
@@ -1501,7 +1516,7 @@ def replay_run(cfg, params, dev, fused: bool, mesh=None) -> dict:
     check(not box["violations"], f"{tag}: eviction oracle: "
           f"{box['violations'][:3]}")
     check(eng.kv.evicted_blocks > 0, f"{tag}: the pool never evicted")
-    front_end_checks(tag, m, eng, wl, rc.max_turns, LIVE_APT,
+    front_end_checks(tag, m, [eng], wl, rc.max_turns, LIVE_APT,
                      gw.max_over_frontier_s)
     st = eng.transfer.stats
     log(f"[frontend] {tag}: {gw.rounds} rounds in {secs:.1f} s, evicted "
@@ -1914,6 +1929,327 @@ def sharded_phase(cfg, params, dev, planes: dict, b32: dict,
     return paths
 
 
+# ======================================================================
+# (h) the replica fleet: replicas of the one set of weights on the card
+# ======================================================================
+FLEET = 3
+# (h1), (h2): the fleet twin's clamps and each replica's geometry are
+# (f3)'s: prompts <= 64, replies <= 16, 4 slots, pages of 16, 10 a
+# session, rounds of 16 tokens
+FLEET_RC = dict(audio_per_token_s=LIVE_APT, round_token_budget=16,
+                prefill_chunk=16, frontier_cap_s=FRONTIER_CAP_S,
+                max_prompt=64, max_response=16, max_turns=2)
+FLEET_GEOMETRY = dict(slots=4, page_size=16, pages_per_seq=10)
+# (h1) agent handoffs without barge-ins on the default pool (80 pages a
+# replica: nothing evicts); (h2) interactive sessions with barge-ins,
+# replica 0 drained after 6 routes, on 18 pages a replica: the
+# destinations evict and reload
+H1_TRACE = dict(kind="handoff", num_sessions=6, seed=SEED, p_barge_in=0.0,
+                arrival="poisson", rate_rps=1.0)
+H2_TRACE = dict(kind="interactive", num_sessions=9, seed=SEED,
+                p_barge_in=0.3, arrival="poisson", rate_rps=1.0)
+H2_DRAIN, H2_PAGES = (0, 6), 18
+# (h3): (f1)'s trace and geometry on each replica, 12 sessions, replica 0
+# drained after 6 routes (its sessions live-migrate at their next turn)
+H3_TRACE = dict(LIVE_TRACE, sessions=12)
+H3_DRAIN = (0, 6)
+
+
+def as_bytes(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.uint8)
+
+
+def watch_migrations(eng, snaps: dict) -> None:
+    """Read each session's pages through the device plane as
+    ``migrate_out_begin`` starts on ``eng``, and again once a landing
+    page-in on ``eng`` has made all of them resident (before a round
+    can write): ``snaps[sid]`` holds the committed pages and both
+    reads."""
+    from repro_torch.serving.paged_engine import _OP_OFFLOAD
+    begin, reload_chunk = eng.migrate_out_begin, eng._io_reload_chunk
+
+    def read(sid):
+        pages = list(eng.pool.seq(sid).pages)
+        check(all(p >= 0 for p in pages), f"{sid}: a page is not resident")
+        return eng._device(_OP_OFFLOAD, pages)
+
+    def migrate_out_begin(sid):
+        snaps[sid] = dict(pages=len(eng.pool.seq(sid).pages),
+                          before=read(sid), after=None)
+        return begin(sid)
+
+    def io_reload_chunk(sid, lis):
+        reload_chunk(sid, lis)
+        snap, s = snaps.get(sid), eng.pool.seq(sid)
+        if snap is not None and snap["after"] is None \
+                and not s.offloaded and not s.loading:
+            snap["after"] = read(sid)
+
+    eng.migrate_out_begin = migrate_out_begin
+    eng.transfer.set_io(reload_chunk=io_reload_chunk,
+                        offload_chunk=eng._io_offload_chunk)
+
+
+def fleet_replay(cfg, params, dev, trace: dict, *, replicas=FLEET,
+                 num_pages=None, drain=None, snaps=None):
+    """``run_fleet_replay`` (one replica: ``run_replay``) of ``trace`` on
+    the fused plane, every replica's invariants checked after every
+    round and its logits held finite. Returns (metrics, gateway,
+    engines, seconds)."""
+    from repro_torch.serving.fleet import run_fleet_replay
+    from repro_torch.serving.gateway.replay import ReplayConfig, run_replay
+    from repro_torch.serving.paged_engine import PagedRealtimeEngine
+    from repro_torch.serving.workload import WorkloadConfig
+    engines, bad = [], []
+
+    def factory(clock):
+        eng = PagedRealtimeEngine(cfg, params, clock=clock, device=dev,
+                                  num_pages=num_pages, **FLEET_GEOMETRY)
+        eng.logit_tap = lambda sid, lg: \
+            bad.append(sid) if not np.isfinite(lg).all() else None
+        if snaps is not None:
+            watch_migrations(eng, snaps)
+        engines.append(eng)
+        return eng
+
+    wl, rc = WorkloadConfig(**trace), ReplayConfig(**FLEET_RC)
+    t0 = time.perf_counter()
+    if replicas == 1:
+        m, gw = run_replay(factory, wl, rc, seed=SEED)
+    else:
+        m, gw = run_fleet_replay(factory, replicas, wl, rc, seed=SEED,
+                                 drain_after_routes=drain)
+    torch.cuda.synchronize()
+    check(not bad, f"fleet replay: non-finite logits for {bad}")
+    check(m.completed_sessions == wl.num_sessions,
+          f"fleet replay: {m.completed_sessions}/{wl.num_sessions} "
+          f"sessions completed")
+    return m, gw, engines, time.perf_counter() - t0
+
+
+def histories(engines) -> dict:
+    """Every session's token stream, wherever it ended up."""
+    return {sid: s.history for e in engines for sid, s in e.sessions.items()}
+
+
+def fused_counts_check(tag, counts, cfg, engines, extra=0) -> None:
+    """Each fused round of every replica launched the fused kernel once a
+    layer (``extra`` steps besides: the warm-up's buckets)."""
+    steps = sum(e.fused_launches for e in engines) + extra
+    check(counts["paged_prefill_attention"] == cfg.num_layers * steps,
+          f"{tag}: {counts['paged_prefill_attention']} fused launches for "
+          f"{steps} steps of {cfg.num_layers} layers")
+
+
+def fleet_exact_phase(cfg, params, dev) -> dict:
+    """(h1) migration is exact: the fleet twin on a barge-free handoff
+    trace in f32. The router routes session i to replica i % 3 and
+    hands it off iff its turn-1 target differs mod 3; every session's
+    stream is the single-replica run's (in f32 a row's result does not
+    depend on its batch, so a session resumed on anything but its own
+    KV would differ); each migrated session's pages read back bit for
+    bit on the destination; each plan moved the session's committed
+    pages and the wire bytes add up."""
+    from repro_torch.serving.workload import WorkloadConfig, generate
+    c32, p32 = f32_twin(cfg, params)
+    snaps = {}
+    m, gw, engines, secs = fleet_replay(c32, p32, dev, H1_TRACE,
+                                        snaps=snaps)
+    _, _, single, secs1 = fleet_replay(c32, p32, dev, H1_TRACE, replicas=1)
+    del p32
+    torch.cuda.empty_cache()
+    trace = generate(WorkloadConfig(**H1_TRACE))
+    want_routes = [("route", s.session_id, i % FLEET)
+                   for i, s in enumerate(trace)]
+    want = [("handoff", s.session_id, i % FLEET, t.handoff_target % FLEET)
+            for i, s in enumerate(trace)
+            for t in s.turns[1:FLEET_RC["max_turns"]]
+            if t.handoff and t.handoff_target % FLEET != i % FLEET]
+    got = gw.router.decisions
+    check(want and [d for d in got if d[0] == "route"] == want_routes
+          and sorted(d for d in got if d[0] != "route") == sorted(want),
+          f"(h1) decisions {got}, the trace predicts {want_routes} and "
+          f"{want}")
+    done = gw.migrator.completed()
+    check(len(done) == len(want) and not gw.migrator.plans
+          and not gw.migrator.cancelled()
+          and all(p.kind == "handoff" for p in done),
+          f"(h1) {len(done)} of {len(want)} handoffs completed")
+    ref = histories(single)
+    got_h = histories(engines)
+    same = sum(got_h.get(sid) == h for sid, h in ref.items())
+    check(got_h == ref, f"(h1) {same}/{len(ref)} sessions stream as on "
+          f"one replica")
+    for p in done:
+        snap = snaps.get(p.session_id)
+        check(snap is not None and snap["after"] is not None,
+              f"(h1) {p.session_id}: its landed pages were never read")
+        check(p.pages == snap["pages"] > 0,
+              f"(h1) {p.session_id}: moved {p.pages} pages of "
+              f"{snap['pages']} committed")
+        check(torch.equal(as_bytes(snap["before"]), as_bytes(snap["after"])),
+              f"(h1) {p.session_id}: landed pages differ from the source's")
+    wire = sum(gw.replicas.interconnect.wire_bytes(p.pages) for p in done)
+    check(m.migration_bytes == wire,
+          f"(h1) migration_bytes {m.migration_bytes} != {wire}")
+    log(f"[fleet] (h1) handoff f32, {FLEET} replicas: decisions as the "
+        f"trace predicts ({len(want)} handoffs, routes i % {FLEET}); "
+        f"streams of {len(ref)}/{len(ref)} sessions equal one replica's; "
+        f"{sum(p.pages for p in done)} pages moved, each bit for bit; "
+        f"migration_bytes {m.migration_bytes:.0f}; migration_off_path "
+        f"{m.summary()['migration_off_path']:.4f}; {gw.rounds} replica "
+        f"rounds in {secs:.1f} s (one replica: {secs1:.1f} s)")
+    return dict(engines=engines + single, cfg=c32)
+
+
+def fleet_drain_phase(cfg, params, dev) -> dict:
+    """(h2) drains and cancels on a tight pool, bf16: the interactive
+    trace with barge-ins, replica 0 drained after 6 routes, 18 pages a
+    replica. Every plan ends done or cancelled as the decision log
+    accounts for, the drained replica ends empty, every replica's pages
+    are conserved."""
+    m, gw, engines, secs = fleet_replay(cfg, params, dev, H2_TRACE,
+                                        num_pages=H2_PAGES, drain=H2_DRAIN)
+    moves = [d for d in gw.router.decisions
+             if d[0] in ("migrate", "handoff")]
+    done, cancelled = gw.migrator.completed(), gw.migrator.cancelled()
+    check(moves and len(done) + len(cancelled) == len(moves)
+          and not gw.migrator.plans
+          and all(p.reason in ("barge", "hangup", "dst_pressure")
+                  for p in cancelled),
+          f"(h2) {len(moves)} decided, {len(done)} done, cancelled "
+          f"{[p.reason for p in cancelled]}")
+    check(("drain", H2_DRAIN[0]) in gw.router.decisions,
+          f"(h2) replica {H2_DRAIN[0]} was never drained")
+    check(sum(e.kv.evicted_blocks for e in engines) > 0,
+          "(h2) the pools never evicted")
+    for i, e in enumerate(engines):
+        e.flush_transfers()
+        e.check_invariants()
+        check(e.pool.free_pages == e.num_pages
+              and all(s.ended for s in e.sessions.values()),
+              f"(h2) replica {i} ends holding pages or live sessions")
+    log(f"[fleet] (h2) interactive "
+        f"{str(cfg.activation_dtype()).replace('torch.', '')}, barge-in "
+        f"{H2_TRACE['p_barge_in']}, replica "
+        f"{H2_DRAIN[0]} drained after {H2_DRAIN[1]} routes, "
+        f"{H2_PAGES} pages a replica: {len(moves)} migrations decided, "
+        f"{len(done)} done, cancelled {[p.reason for p in cancelled]}; "
+        f"migration seconds on the path {m.migration_on_path_s:.6g}, off "
+        f"it {m.migration_off_path_s:.6g} (modeled); evicted "
+        f"{[e.kv.evicted_blocks for e in engines]}, reloaded "
+        f"{[e.kv.reloaded_blocks for e in engines]} blocks; routed "
+        f"{gw.router.routed}; {gw.rounds} replica rounds in {secs:.1f} s")
+    return dict(engines=engines)
+
+
+def live_fleet_phase(cfg, params, dev, f1: dict) -> dict:
+    """(h3) ``run_fleet_workload`` on the wall clock at scale 1: (f1)'s
+    interactive trace at 12 sessions over 3 replicas of (f1)'s geometry
+    sharing the weights, replica 0 drained after 6 routes. Held to what
+    the trace determines; each replica round's host time is read around
+    ``run_round``, and each replica's first round beside its median (the
+    warm-up ran on replica 0 alone)."""
+    from repro_torch.serving.fleet import build_fleet_gateway, \
+        run_fleet_workload
+    from repro_torch.serving.workload import WorkloadConfig
+    t0 = time.perf_counter()
+    gw = build_fleet_gateway(
+        replicas=FLEET, policy="liveserve", scale=1.0, model=(cfg, params),
+        device=dev, slots=LIVE_SLOTS, page_size=16, pages_per_seq=40,
+        round_token_budget=LIVE_BUDGET, prefill_chunk=LIVE_CHUNK,
+        audio_per_token_s=LIVE_APT, frontier_cap_s=FRONTIER_CAP_S,
+        seed=SEED, drain_after_routes=H3_DRAIN)
+    warm = time.perf_counter() - t0
+    engines = list(gw.replicas)
+    check(all(e.params is params for e in engines),
+          "(h3) the replicas do not share one set of weights")
+    bad, round_s = [], [[] for _ in engines]
+    for i, eng in enumerate(engines):
+        eng.logit_tap = lambda sid, lg: \
+            bad.append(sid) if not np.isfinite(lg).all() else None
+
+        def timed_round(chunks, run_round=eng.run_round, times=round_s[i]):
+            t = time.perf_counter()
+            out = run_round(chunks)
+            times.append(time.perf_counter() - t)
+            return out
+
+        eng.run_round = timed_round
+    t1 = time.perf_counter()
+    m, gw = run_fleet_workload(policy="liveserve", seed=SEED, gateway=gw,
+                               timeout_s=600, **H3_TRACE)
+    secs = time.perf_counter() - t1
+    tag = "(h3) live fleet"
+    check(not bad, f"{tag}: non-finite logits for {bad}")
+    wl = WorkloadConfig(kind=H3_TRACE["kind"],
+                        num_sessions=H3_TRACE["sessions"], seed=SEED,
+                        p_barge_in=H3_TRACE["barge_in"],
+                        arrival=H3_TRACE["arrival"],
+                        rate_rps=H3_TRACE["rate_rps"])
+    front_end_checks(tag, m, engines, wl, H3_TRACE["max_turns"], LIVE_APT,
+                     gw.max_over_frontier_s)
+    done = gw.migrator.completed()
+    check(done, f"{tag}: no migration completed")
+    for i, e in enumerate(engines):
+        e.flush_transfers()
+        e.check_invariants()
+        check(e.pool.free_pages == e.num_pages,
+              f"{tag}: replica {i} ends holding pages")
+    s = m.summary()
+    allr = [t for r in round_s for t in r]
+    log(f"[fleet] {tag}: {len(m.turns)} turns "
+        f"({sum(t.barged for t in m.turns)} barged), P50 TTFP "
+        f"{s['p50_ttfp']:.4f} s, P90 TTFP {s['p90_ttfp']:.4f} s (one "
+        f"replica, 8 sessions, (f1): {f1['p50_ttfp']:.4f} / "
+        f"{f1['p90_ttfp']:.4f} s), continuity {s['continuity']:.4f}; "
+        f"{len(done)} migrations done of "
+        f"{len(gw.router.migration_decisions())} decided, "
+        f"migration_off_path {s['migration_off_path']:.4f}")
+    for i, e in enumerate(engines):
+        r = round_s[i]
+        log(f"[fleet] {tag} replica {i}: routed {gw.router.routed[i]}, "
+            f"migrated in {sum(p.dst == i for p in done)} out "
+            f"{sum(p.src == i for p in done)}, peak occupancy "
+            f"{m.replica_occupancy[i]:.4f}, {len(r)} rounds"
+            + (f", {1e3 * sum(r) / len(r):.2f} ms/round (median "
+               f"{1e3 * float(np.median(r)):.2f}, first "
+               f"{1e3 * r[0]:.2f})" if r else "")
+            + (" [drained]" if i in gw.router.draining else ""))
+    log(f"[fleet] {tag}: {gw.rounds} replica rounds, "
+        f"{1e3 * sum(allr) / len(allr):.2f} ms/round, {sum(allr):.1f} s of "
+        f"{secs:.1f} s in rounds; warm-up {warm:.1f} s")
+    return dict(engines=engines)
+
+
+def launcher_fleet_phase() -> None:
+    """(h4) the launcher's fleet on the card: ``--engine live --replicas
+    3 --workload handoff`` at qwen2-1.5b on three sessions, two of which
+    hand off to another replica; it must print one row per replica."""
+    import os
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--engine",
+           "live", "--replicas", str(FLEET), "--workload", "handoff",
+           "--sessions", "3"]
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                         cwd=ROOT, env=dict(os.environ,
+                                            PYTHONPATH=str(ROOT / "src")))
+    check(out.returncode == 0, f"(h4) {' '.join(cmd[1:])} exited "
+          f"{out.returncode}: {out.stderr[-2000:]}")
+    lines = out.stdout.splitlines()
+    rows = [ln for ln in lines if ln.startswith("replica") and "routed=" in ln]
+    check(len(rows) == FLEET and all("peak_occupancy=" in r for r in rows),
+          f"(h4) replica rows: {rows}")
+    summary = {ln.split()[0]: ln.split()[1] for ln in lines
+               if ln.split()[:1] in (["p50_ttfp"], ["p90_ttfp"],
+                                     ["handoffs"], ["migrations"],
+                                     ["rounds"])}
+    check(int(summary.get("handoffs", 0)) > 0, f"(h4) no handoff: {summary}")
+    log(f"[fleet] (h4) {' '.join(cmd[1:])}: {time.perf_counter() - t0:.1f}"
+        f" s; " + "; ".join(f"{k} {v}" for k, v in summary.items())
+        + "; " + "; ".join(" ".join(r.split()) for r in rows))
+
+
 def cast_params(tree, dtype, key=None):
     """Every leaf to ``dtype`` (no copy where it already is), except the
     mixer's leaves that stay f32 at any type."""
@@ -2038,6 +2374,26 @@ def main() -> int:
         log(f"[launches] {tag}: {counts}")
         add(counts, {"paged_attention": 0, "flash_prefill": 0}
             if what == "tokenwise" else {"paged_prefill_attention": 0})
+    # (h) the replica fleet, each part with its own counts: every
+    # replica's fused rounds run the fused kernel
+    t_h = time.perf_counter()
+    h1, counts = main_path("fleet twin, handoffs (h1)", fleet_exact_phase,
+                           cfg, params, dev)
+    add(counts, {"paged_prefill_attention": 0})
+    fused_counts_check("(h1)", counts, cfg, h1["engines"])
+    h2, counts = main_path("fleet twin, drains (h2)", fleet_drain_phase,
+                           cfg, params, dev)
+    add(counts, {"paged_prefill_attention": 0})
+    fused_counts_check("(h2)", counts, cfg, h2["engines"])
+    h3, counts = main_path("live fleet (h3)", live_fleet_phase, cfg, params,
+                           dev, f1)
+    add(counts, {"paged_prefill_attention": 0})
+    # the warm-up steps once per query-axis bucket up to the chunk
+    fused_counts_check("(h3)", counts, cfg, h3["engines"],
+                       extra=LIVE_CHUNK.bit_length())
+    del h1, h2, h3
+    launcher_fleet_phase()
+    log(f"[fleet] phase (h): {time.perf_counter() - t_h:.1f} s")
     del eng, params
     # (d) mamba2-1.3b at full width; prompts no multiple of its chunk
     t0 = time.perf_counter()

@@ -16,6 +16,13 @@ scaled wall clock):
   PYTHONPATH=src python -m repro_torch.launch.serve --engine live \\
       --device cpu --config tiny --sessions 4
 
+Replica fleet (``--replicas N``, N >= 2: N paged engines sharing one
+set of weights behind one gateway, with live cross-replica KV
+migration; DESIGN.md §12), e.g. under agent handoffs:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --engine live \\
+      --replicas 3 --workload handoff --sessions 6
+
 Real engine demo (the scripted multi-turn conversation, no gateway):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --engine real \\
@@ -36,8 +43,8 @@ ranks that share a card talk gloo through host memory:
       --device cpu --config tiny --mesh 1x2
 
 The flags and their rejections are the reference launcher's; kernel
-autotune (``--autotune``) and the replica fleet (``--replicas`` above 1,
-``--workload handoff``) are not ported yet and are rejected naming
+autotune (``--autotune``) and the fleet over a mesh (``--mesh`` with
+``--replicas`` above 1) are not ported yet and are rejected naming
 their ROADMAP item.
 """
 from __future__ import annotations
@@ -154,22 +161,39 @@ def _real(config: str, device, seed: int, fused_step: bool, as_json: bool,
 
 
 def _live(config: str, device, seed: int, kw: dict, as_json: bool,
-          mesh) -> None:
-    """--engine live on this process (or this rank of ``mesh``)."""
-    from repro_torch.serving.gateway import run_gateway_workload
+          replicas: int, mesh) -> None:
+    """--engine live on this process (or this rank of ``mesh``): one
+    engine, or a fleet of ``replicas`` engines sharing the weights."""
     cfg, params, dev = build_model(config, mesh.device if mesh else device,
                                    seed)
-    m, gw = run_gateway_workload(model=(cfg, params), device=dev, seed=seed,
-                                 mesh=mesh, **kw)
-    if gw is None:                       # a follower rank
-        return
-    eng = gw.engine
+    if replicas > 1:
+        from repro_torch.serving.fleet import run_fleet_workload
+        m, gw = run_fleet_workload(replicas=replicas, model=(cfg, params),
+                                   device=dev, seed=seed, **kw)
+        engines = list(gw.replicas)
+    else:
+        from repro_torch.serving.gateway import run_gateway_workload
+        m, gw = run_gateway_workload(model=(cfg, params), device=dev,
+                                     seed=seed, mesh=mesh, **kw)
+        if gw is None:                   # a follower rank
+            return
+        engines = [gw.engine]
     s = m.summary()
     s["rounds"] = gw.rounds
     s["max_over_frontier_s"] = gw.max_over_frontier_s
-    off = eng.transfer.stats.reload_pages_off_path
-    on = eng.transfer.stats.reload_pages_on_path
+    off = sum(e.transfer.stats.reload_pages_off_path for e in engines)
+    on = sum(e.transfer.stats.reload_pages_on_path for e in engines)
     s["transfer_overlap_frac"] = off / (off + on) if off + on else 0.0
+    if replicas > 1:
+        done = gw.migrator.completed()
+        for i in range(replicas):
+            mig_in = sum(1 for p in done if p.dst == i)
+            mig_out = sum(1 for p in done if p.src == i)
+            s[f"replica{i}"] = (
+                f"routed={gw.router.routed[i]} "
+                f"migrated_in={mig_in} migrated_out={mig_out} "
+                f"peak_occupancy={m.replica_occupancy[i]:.3f}"
+                + (" [drained]" if i in gw.router.draining else ""))
     _print(s, as_json)
 
 
@@ -197,8 +221,8 @@ def main(argv=None) -> None:
                          "(per-token deadlines, deadline_miss_rate); "
                          "toolcall: agentic tool-call pauses (hot-KV "
                          "idle + resume without re-prefill); handoff: "
-                         "mid-conversation transfer to another replica "
-                         "(not ported yet). These need --engine live")
+                         "mid-conversation transfer to another replica. "
+                         "These need --engine live")
     ap.add_argument("--system", default=None,
                     choices=["liveserve", "vllm-omni", "vllm-omni-wo"])
     ap.add_argument("--sessions", type=int, default=None)
@@ -266,7 +290,9 @@ def main(argv=None) -> None:
                          "ported yet)")
     ap.add_argument("--replicas", type=int, default=None,
                     help="live engine: data-parallel engine replicas "
-                         "behind one gateway (only 1 is ported)")
+                         "behind one gateway, sharing one set of weights, "
+                         "with live cross-replica KV migration "
+                         "(DESIGN.md §12)")
     args = ap.parse_args(argv)
 
     if args.engine != "live":
@@ -355,11 +381,9 @@ def main(argv=None) -> None:
                      "drop --no-fused-step (DESIGN.md §16)")
         if args.autotune is not None:
             _not_ported(ap, "--autotune (kernel autotune)", "4")
-        if replicas > 1:
-            _not_ported(ap, "--replicas above 1 (the replica fleet)", "5")
-        if workload == "handoff":
-            _not_ported(ap, "--workload handoff (it needs the replica "
-                        "fleet)", "5")
+        if replicas > 1 and args.mesh is not None:
+            _not_ported(ap, "--mesh with --replicas above 1 (the fleet "
+                        "over a mesh)", "8")
         live = LIVE[config]
         page = live["page_size"]
         slots = args.slots if args.slots is not None else 8
@@ -393,7 +417,7 @@ def main(argv=None) -> None:
             audio_per_token_s=live["audio_per_token_s"],
             frontier_cap_s=3.0 if system == "liveserve" else None)
         _serve(args.mesh, device, functools.partial(
-            _live, config, device, args.seed, kw, args.json))
+            _live, config, device, args.seed, kw, args.json, replicas))
         return
     else:
         from repro_torch.serving.costmodel import PIPELINES

@@ -56,9 +56,14 @@ leader calls ``release_followers()``. Offload gathers a page's shards to
 the leader and reload broadcasts the global chunk, so host copies (and
 the int8 codec's scales) are the single-device engine's.
 
-Out of this slice (each raises ``NotImplementedError`` naming its
-ROADMAP item): the moe and vlm families and the cross-replica migration
-methods.
+The cross-replica migration methods (``migrate_out_*``,
+``migrate_in_adopt``; DESIGN.md §12) are the reference's; the one that
+touches the device, the prefix plane's deep copy of shared pages in
+``migrate_out_begin``, reads them through the device plane as an
+offload chunk does.
+
+Out of this slice (raising ``NotImplementedError`` naming its ROADMAP
+item): the moe and vlm families.
 """
 from __future__ import annotations
 
@@ -75,7 +80,7 @@ from repro_torch.core.monitor import RuntimeMonitor
 from repro_torch.core.preload import SpeechPreloader
 from repro_torch.core.scheduler import SchedulerConfig, UrgencyScheduler
 from repro_torch.core.session import Phase, Request, RequestState
-from repro_torch.core.transfer_engine import TransferEngine
+from repro_torch.core.transfer_engine import MIGRATE, TransferEngine
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ref
 from repro_torch.kernels.paged_attention import paged_attention, \
@@ -1186,6 +1191,157 @@ class PagedRealtimeEngine:
             s.request.state = RequestState.ABORTED
             self.monitor.on_barge_in(session_id)
             self._close_turn(i, aborted=True)
+
+    # --------------------------------------------------------- migration
+    # Cross-replica migration (serving/fleet, DESIGN.md §12) rides the
+    # same chunked ledger as eviction/preload: the source queues its
+    # whole committed context as MIGRATE-tagged copy-then-free offload
+    # chunks (drained across rounds while the user is still speaking),
+    # and once everything is host-resident the session state transplants
+    # wholesale to the destination engine, which pages it back in with
+    # the ordinary speech-time preload machinery — so the on-path vs
+    # off-path split of migration bytes needs no new accounting.
+
+    def migrate_out_begin(self, session_id: str) -> int:
+        """Queue the session's entire device-resident KV for host
+        offload (copy-then-free, MIGRATE-tagged). The session must be
+        idle (no live slot); any in-flight speech-time preload is
+        cancelled first — its pages are about to leave this replica.
+        Returns the number of pages queued for offload now (pages
+        already offloaded or already offloading are not re-queued)."""
+        sid = session_id
+        sess = self.sessions[sid]
+        assert not sess.ended, f"{sid} ended; nothing to migrate"
+        assert all(s is None or s.session_id != sid
+                   for s in self.slot_state.values()), \
+            f"{sid}: migration requires an idle session (no live slot)"
+        now = self.clock.now()
+        self.preloader.cancel(sid, now)
+        self.kv.cancel_reload(sid, now)
+        s = self.pool.seq(sid)
+        kvs = self.kv.session(sid)
+        deep_copied = 0
+        if self.prefix_cache is not None:
+            # Shared pages cannot ride the copy-then-free ledger (their
+            # slot must NOT free — sharers still need it hot). Private
+            # pages the index holds are forgotten (plain again); truly
+            # shared pages deep-copy to host synchronously and the
+            # departing session drops its reference — the destination
+            # re-resolves against its own radix index on later turns.
+            self._forget_cached(
+                [p for p in s.pages
+                 if p >= 0 and self.pool.refcount[p] == 1
+                 and p in self.pool.cache_held
+                 and self.pool.page_owner[p] == sid])
+            shared_lis = [li for li, p in enumerate(s.pages)
+                          if p >= 0 and (self.pool.refcount[p] > 1
+                                         or self.pool.page_owner[p] != sid)]
+            if shared_lis:
+                self._bank_detach(sid, now)
+                for li in shared_lis:
+                    # through the device plane, as an offload chunk is:
+                    # a bf16 page round-trips bit for bit and a mesh
+                    # gathers its shards
+                    host = self._device(_OP_OFFLOAD, [s.pages[li]])
+                    was_owner, freed = self.pool.detach_page(sid, li)
+                    s.offloaded[li] = self.codec.encode(host[0])
+                    if was_owner:
+                        # stays for its sharers, cache-charged now
+                        kvs.hbm_blocks -= 1
+                        self.kv.cached_blocks += 1
+                    else:
+                        kvs.shared_blocks -= 1
+                        if freed:
+                            # last reference to an orphan: the cache
+                            # was paying and the slot just freed
+                            self.kv.cached_blocks -= 1
+                deep_copied = len(shared_lis)
+                self._refresh_shared_pins()
+                self._sync_page_counts(sid)
+        lis = [li for li, p in enumerate(s.pages)
+               if p >= 0 and li not in s.loading and li not in s.offloading]
+        assert not s.loading and kvs.hbm_blocks == len(lis), \
+            f"{sid}: accounting ({kvs.hbm_blocks}) disagrees with " \
+            f"resident pages ({len(lis)}) at migrate-out"
+        if lis:
+            self.pool.mark_offloading(sid, lis)
+            self.transfer.submit_offload(sid, lis, tag=MIGRATE)
+            # accounting mirrors the eviction hook: the blocks leave
+            # this replica's HBM budget now; copy-then-free keeps the
+            # physical slots (and their usability) until chunks drain
+            kvs.hbm_blocks = 0
+            self._sync_page_counts(sid)
+        return len(lis) + deep_copied
+
+    def migrate_out_pending(self, session_id: str) -> int:
+        """Pages still queued on the source's offload ledger."""
+        return self.transfer.pending_offload_pages(session_id)
+
+    def migrate_out_cancel(self, session_id: str) -> int:
+        """Abandon a not-yet-handed-off migration zero-copy: queued
+        offload chunks drop from the ledger and their pages stay
+        resident (the bytes never left HBM — the same copy-then-free
+        win as a reload racing an eviction). Pages whose chunks already
+        drained stay host-resident; the session's next turn on *this*
+        replica reloads them through the normal path. Returns pages
+        restored to resident."""
+        sid = session_id
+        dropped = self.transfer.cancel_offload_pages(sid)
+        restored = self.pool.cancel_offloading(sid)
+        assert len(restored) == dropped, (sid, restored, dropped)
+        if dropped:
+            self.kv.session(sid).hbm_blocks += dropped
+            self._sync_page_counts(sid)
+        return dropped
+
+    def migrate_out_finalize(self, session_id: str) -> dict:
+        """Every page is host-resident: detach the session wholesale —
+        PagedSession (history, turn stats), monitor view (reply-gap
+        EMA, expected speech end), host page copies — and scrub every
+        source-side table, exactly like a hangup except the state moves
+        instead of dying. The returned dict feeds ``migrate_in_adopt``
+        on the destination engine."""
+        sid = session_id
+        s = self.pool.seqs[sid]
+        assert self.transfer.pending_offload_pages(sid) == 0 \
+            and not s.offloading and not s.loading \
+            and all(p == -1 for p in s.pages), \
+            f"{sid}: migrate-out finalize before all chunks drained"
+        state = {
+            "session": self.sessions.pop(sid),
+            "view": self.monitor.forget(sid),
+            "n_pages": len(s.pages),
+            "length": s.length,
+            "host": dict(s.offloaded),
+        }
+        self.transfer.cancel_session(sid)     # clears split accumulators
+        self.preloader.forget_session(sid)
+        self.pool.release(sid)
+        self.kv.release_session(sid)
+        return state
+
+    def migrate_in_adopt(self, session_id: str, state: dict) -> None:
+        """Install a migrated session: pool entry fully host-resident
+        (``pages[li] == -1`` everywhere), KV accounting with zero HBM
+        blocks, interaction view transplanted so Eq. 4 and the preload
+        window keep their learned state. The caller then fires
+        ``preloader.on_speech_start`` so the page-in rides the remaining
+        speech window like any preload (admission-checked, chunked,
+        cancellable, OutOfPages-recoverable at turn start)."""
+        sid = session_id
+        assert sid not in self.sessions, f"{sid} already on this replica"
+        self.sessions[sid] = state["session"]
+        if state["view"] is not None:
+            self.monitor.adopt(sid, state["view"])
+        else:
+            self.monitor.register(sid)
+        self.pool.adopt(sid, state["n_pages"], state["length"],
+                        state["host"])
+        kvs = self.kv.session(sid)
+        kvs.total_blocks = state["n_pages"]
+        kvs.hbm_blocks = 0
+        kvs.last_access = self.clock.now()
+        self._sync_page_counts(sid)
 
     # ------------------------------------------------------------ rounds
     def active(self) -> List[PagedSlot]:

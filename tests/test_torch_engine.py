@@ -426,6 +426,11 @@ def test_port_imports_neither_jax_nor_reference():
     assert {"src/repro_torch/distributed/__init__.py",
             "src/repro_torch/distributed/paged.py",
             "src/repro_torch/launch/mesh.py"} <= names
+    # and the replica fleet with its straggler mitigator
+    assert {f"src/repro_torch/serving/fleet/{m}.py"
+            for m in ("__init__", "replica_set", "router", "migration",
+                      "gateway", "replay", "harness")} \
+        | {"src/repro_torch/distributed/fault_tolerance.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
