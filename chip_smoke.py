@@ -30,21 +30,23 @@ read just after:
   determines; (f3) the virtual-time replay twin (``run_replay``) on a
   pool tight enough to evict, with the next-use eviction oracle, on
   both planes in f32 (identical streams and turn records) and in bf16;
-- (g) the sharded page plane (``mesh=``): (g0) the paged kernels'
-  sharding options (``pos_stride``, ``pos_offset``, ``return_stats``) at
-  the engine's shapes in one process, against the plain version, the
-  stripe merge and the unsharded kernel; then meshes of 2 (heads), 4
-  (slots) and 3 (replicated) ranks that share the card and talk gloo
-  through host memory, each rank a process of its own: (g1) the
-  global-view sharded kernels (and ``sharded_flash_prefill``) against
-  the single-device kernels, (g2) the sharded engine at full width:
-  phase (b)'s trace at M 2 in bf16 and M 4 in f32, token for token the
-  single-device engine's (M 4 in bf16 logged), a short per-token trace
-  at M 4 (the decode kernel with stats, the dense graft) and phase
-  (f3)'s replay at M 4 in f32, record for record the single-device
+- (g) the sharded page plane (``mesh=``), on qwen2-1.5b's first 14 of
+  28 layers at full width: (g0) the paged kernels' sharding options
+  (``pos_stride``, ``pos_offset``, ``return_stats``) at the engine's
+  shapes in one process, against the plain version, the stripe merge
+  and the unsharded kernel; then meshes of 2 (heads), 4 (slots) and 3
+  (replicated) ranks that share the card and talk gloo through host
+  memory, each rank a process of its own: (g1) the global-view sharded
+  kernels (and ``sharded_flash_prefill``) against the single-device
+  kernels, (g2) the sharded engine: phase (b)'s trace at M 2 in bf16
+  and M 4 in f32, token for token the single-device engine's on the
+  same layers (M 4 in bf16 logged), a short per-token trace at M 4 (the
+  decode kernel with stats, the dense graft) and phase (f3)'s replay at
+  M 4 in f32, record for record the single-device
   run's; the ranks' launch counts are summed into the kernels' line;
-- (h) the replica fleet on qwen2-1.5b: three paged engines in this
-  process sharing the one set of weights, behind one gateway: (h1) the
+- (h) the replica fleet on qwen2-1.5b's first 14 layers: three paged
+  engines in this process sharing the one set of weights, behind one
+  gateway: (h1) the
   fleet twin (``run_fleet_replay``) on a barge-free agent-handoff trace
   in f32, its router decisions the ones the trace predicts, every
   session's stream the single-replica run's, each migrated session's
@@ -55,7 +57,18 @@ read just after:
   empty; (h3) the live fleet gateway (``run_fleet_workload``) serving 12
   interactive sessions on the wall clock at scale 1 with a drained
   replica's sessions live-migrating; (h4) the launcher's ``--replicas 3
-  --workload handoff``;
+  --workload handoff`` (at full depth);
+- (i) the moe and vlm families: (i0) the three attention kernels at
+  head dim 256 (paligemma-3b's round, MQA with 8 query heads) against
+  their plain versions; (i1) paligemma-3b whole (18 layers, bf16) on
+  both planes of phase (b)'s trace, and its f32 twin on both planes and
+  through the per-token plane's dense graft, held to the B = 1 greedy
+  streams; (i2) phi3.5-moe at full width on 8 of its 32 layers (16
+  experts, top-2): bf16 at the published capacity factor on both
+  planes (its streams against B = 1 logged: padding takes expert
+  capacity) and the f32 twin at capacity factor E / k, held to B = 1;
+  (i3) the launcher's ``--engine real`` at paligemma-3b and at
+  qwen3-4b (36 layers, ``qk_norm``);
 
 and checks what comes out. Every phase is checked; any failure exits
 non-zero. The last line of standard output is
@@ -68,6 +81,7 @@ when the package it tests is not beside it.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -302,12 +316,12 @@ def build_kernels() -> None:
     check(all(seen.values()), f"bf16 tensor-core kernels not found: {seen}")
 
 
-def kernel_case(dev, dtype, B, Q, ctx, g):
-    """Full-width heads (Hq 12, Hkv 2, D 128), page 16, the engine's row
-    count: ``ctx`` context tokens per row before its chunk, rows 0-1
-    prefilling a Q-token chunk, the others decoding one token, the last
-    row padding (q_lens 0)."""
-    Hq, Hkv, D, page = 12, 2, 128, 16
+def kernel_case(dev, dtype, B, Q, ctx, g, Hq=12, Hkv=2, D=128):
+    """Full-width heads (qwen2-1.5b's Hq 12, Hkv 2, D 128 by default),
+    page 16, the engine's row count: ``ctx`` context tokens per row
+    before its chunk, rows 0-1 prefilling a Q-token chunk, the others
+    decoding one token, the last row padding (q_lens 0)."""
+    page = 16
     pps = math.ceil((max(ctx) + Q) / page)
     P = B * pps + 1
     q = torch.randn(B, Q, Hq, D, generator=g, device=dev).to(dtype)
@@ -634,6 +648,12 @@ def round_grants(eng, chunk: int, decode_grant: int) -> dict:
     return grants
 
 
+def trace_prompts(rng, n_sessions: int, vocab: int) -> list:
+    """``mixed_trace``'s prompts: 64-320 tokens each."""
+    lens = rng.integers(64, 320, size=n_sessions)
+    return [rng.integers(0, vocab, size=int(n)) for n in lens]
+
+
 def mixed_trace(eng, rng, n_sessions: int, max_new: int, chunk: int,
                 decode_grant: int = 1):
     """submit_turn/run_round with chunked prefill grants interleaved with
@@ -642,9 +662,7 @@ def mixed_trace(eng, rng, n_sessions: int, max_new: int, chunk: int,
     slot is granted ``decode_grant`` tokens (1 + K carries a spec
     engine's draft budget). Returns (per-session tokens, rounds, granted
     tokens, seconds)."""
-    V = eng.cfg.vocab_size
-    lens = rng.integers(64, 320, size=n_sessions)
-    prompts = [rng.integers(0, V, size=int(n)) for n in lens]
+    prompts = trace_prompts(rng, n_sessions, eng.cfg.vocab_size)
     slots = {}
     fed = rounds = 0
     t0 = time.perf_counter()
@@ -1150,10 +1168,9 @@ def spec_trace(cfg, params, dev, spec: int, proposer=None):
     return toks, rounds, secs, eng
 
 
-def spec_phase(cfg, params, dev, fused_b: dict, K: int = 3) -> dict:
+def spec_phase(cfg, params, dev, fused_b: dict, K: int = 3) -> None:
     """(e2) spec_decode=K with the n-gram proposer against phase (b)'s
-    K = 0 fused tokens. Returns phase (b)'s trace's tokens in f32 (the
-    K = 0 twin), which (g2) holds the sharded engine to."""
+    K = 0 fused tokens, and in f32 against its K = 0 twin."""
     from repro_torch.serving.spec_decode import NGramProposer
 
     class TimedNGram(NGramProposer):
@@ -1208,7 +1225,6 @@ def spec_phase(cfg, params, dev, fused_b: dict, K: int = 3) -> dict:
         runs.append(f"K={k} {sec:.3f} s ({r} rounds, "
                     f"{sec / r * 1e3:.2f} ms/round)")
     log(f"[feature] (e2) warm, in turns: {'; '.join(runs)}")
-    return b32
 
 
 def int8_phase(cfg, params, dev) -> None:
@@ -1473,7 +1489,8 @@ def live_phase(cfg, params, dev, policy: str) -> dict:
     return s
 
 
-def replay_run(cfg, params, dev, fused: bool, mesh=None) -> dict:
+def replay_run(cfg, params, dev, fused: bool, mesh=None,
+               label: str = "(f3)") -> dict:
     """(f3) one ``run_replay`` of the tight-pool trace with the eviction
     oracle installed (fresh next-use ranking per pass) and the engine's
     invariants checked after every round. With ``mesh`` (g2) the engine
@@ -1510,7 +1527,7 @@ def replay_run(cfg, params, dev, fused: bool, mesh=None) -> dict:
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     eng = gw.eng
-    tag = (f"(f3) {'fused' if fused else 'per-token'} "
+    tag = (f"{label} {'fused' if fused else 'per-token'} "
            f"{str(cfg.activation_dtype()).replace('torch.', '')}"
            + (f" {eng.layout}" if mesh is not None else ""))
     check(not box["violations"], f"{tag}: eviction oracle: "
@@ -1533,12 +1550,11 @@ def replay_run(cfg, params, dev, fused: bool, mesh=None) -> dict:
                 secs=secs)
 
 
-def replay_phase(cfg, params, dev) -> dict:
+def replay_phase(cfg, params, dev) -> None:
     """(f3) the replay twin on both planes in f32, where token streams
     and turn records must be identical, then a bf16 fused run, its
     streams logged against f32's (its modeled reload seconds differ:
-    a bf16 page is half the bytes on the modeled PCIe link). Returns
-    the f32 fused run, which (g2) holds the sharded engine to."""
+    a bf16 page is half the bytes on the modeled PCIe link)."""
     t0 = time.perf_counter()
     c32, p32 = f32_twin(cfg, params)
     fused = replay_run(c32, p32, dev, True)
@@ -1562,7 +1578,6 @@ def replay_phase(cfg, params, dev) -> dict:
     log(f"[frontend] (f3) bf16 fused: sessions with the f32 streams "
         f"{agree}/{len(fused['histories'])}; {time.perf_counter() - t0:.1f}"
         f" s")
-    return fused
 
 
 # ======================================================================
@@ -1576,6 +1591,20 @@ G_PLANS = {  # the parts each 1xM mesh runs: (g1) kernels, (g2) paths
     3: ["kernels"],
 }
 G_LAYOUTS = {2: "heads", 4: "slots", 3: "replicated"}
+# (g) and (h) serve qwen2-1.5b at full width on its first 14 of 28
+# layers, which roughly halves their rounds' device work and (g)'s
+# per-layer gloo traffic
+CUT_LAYERS = 14
+
+
+def first_layers(cfg, params, n: int):
+    """``cfg`` and ``params`` cut to their first ``n`` layers: views into
+    the stacked weights, every width unchanged."""
+    def cut(t):
+        return {k: cut(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t[:n]
+    return cfg.replace(num_layers=n), dict(params, layers=cut(
+        params["layers"]))
 
 
 def stripe_merge(parts):
@@ -1748,13 +1777,14 @@ def g1_flash(mesh, dev) -> dict:
                 bitwise=torch.equal(got, one))
 
 
-def g2_trace(cfg, params, dev, mesh) -> dict:
+def g2_trace(cfg, params, dev, mesh=None) -> dict:
     """(g2) phase (b)'s trace on the fused plane, on the sharded engine
-    (the leader's result; a follower follows and returns None)."""
+    (the leader's result; a follower follows and returns None), or on
+    one device without ``mesh``."""
     from repro_torch.serving.paged_engine import PagedRealtimeEngine
     eng = PagedRealtimeEngine(cfg, params, slots=8, page_size=16,
                               pages_per_seq=32, device=dev, mesh=mesh)
-    if not mesh.is_leader:
+    if mesh is not None and not mesh.is_leader:
         eng.follow()
         return None
     bad = []
@@ -1820,7 +1850,8 @@ def sharded_rank(mesh, plan) -> dict:
             continue
         what, dtype = part
         if params is None or params["embed"].dtype != getattr(torch, dtype):
-            cfg, params, _ = build_demo("qwen2-1.5b", dev, SEED)
+            cfg, params = first_layers(
+                *build_demo("qwen2-1.5b", dev, SEED)[:2], CUT_LAYERS)
             if dtype == "float32":
                 cfg, params = f32_twin(cfg, params)
                 torch.cuda.empty_cache()
@@ -1832,28 +1863,35 @@ def sharded_rank(mesh, plan) -> dict:
         elif what == "tokenwise":
             res = tokenwise_trace(cfg, params, dev, mesh)
         else:
-            res = replay_run(cfg, params, dev, True, mesh=mesh)
+            res = replay_run(cfg, params, dev, True, mesh=mesh,
+                             label="(g2)")
         out[part] = dict(result=res, counts={n: w.launches
                                              for n, w in wrappers.items()})
     return out
 
 
-def sharded_phase(cfg, params, dev, planes: dict, b32: dict,
-                  replay32: dict) -> list:
+def sharded_phase(cfg, params, dev) -> list:
     """(g) the sharded page plane: (g0) the kernels' options in one
     process, then 1x2 (heads), 1x4 (slots) and 1x3 (replicated) meshes of
     ranks sharing the card over gloo: (g1) the global-view kernels
-    against the single-device kernels, (g2) the sharded engine held to
-    the single-device one. Returns ``[(tag, summed counts, expected)]``
-    for the (g2) paths."""
+    against the single-device kernels, (g2) the sharded engine (on
+    ``cfg``'s layers) held to the single-device one, run here first on
+    the same layers. Returns ``[(tag, summed counts, expected)]`` for the
+    (g2) paths."""
     from repro_torch.launch.mesh import spawn
     t_g = time.perf_counter()
     options_phase(dev)
+    single = {"bfloat16": g2_trace(cfg, params, dev)}
     c32, p32 = f32_twin(cfg, params)
+    single["float32"] = g2_trace(c32, p32, dev)
     tw32 = tokenwise_trace(c32, p32, dev)
+    replay32 = replay_run(c32, p32, dev, True, label="(g2) single device")
     del p32
     torch.cuda.empty_cache()
-    single = {"bfloat16": planes["fused"], "float32": dict(tokens=b32)}
+    b = single["bfloat16"]
+    log(f"[sharded] single device, {cfg.num_layers} layers: phase (b)'s "
+        f"trace in {b['rounds']} rounds, "
+        f"{b['secs'] / b['rounds'] * 1e3:.2f} ms/round (bf16)")
     paths = []
     for M, plan in G_PLANS.items():
         kind = G_LAYOUTS[M]
@@ -1895,11 +1933,10 @@ def sharded_phase(cfg, params, dev, planes: dict, b32: dict,
             if what == "fused":
                 ref_toks = single[dtype]["tokens"]
                 same = sum(res["tokens"][s] == ref_toks[s] for s in ref_toks)
-                b = planes["fused"]
                 log(f"[sharded] {tag}: {res['rounds']} rounds in "
                     f"{res['secs']:.2f} s = "
                     f"{res['secs'] / res['rounds'] * 1e3:.2f} ms/round "
-                    f"(single device, phase (b): "
+                    f"(single device: "
                     f"{b['secs'] / b['rounds'] * 1e3:.2f} ms/round); "
                     f"sessions with the single-device {dtype} tokens "
                     f"{same}/{len(ref_toks)}")
@@ -2250,6 +2287,331 @@ def launcher_fleet_phase() -> None:
         + "; " + "; ".join(" ".join(r.split()) for r in rows))
 
 
+# ======================================================================
+# (i) the moe and vlm families on the paged engine
+# ======================================================================
+# paligemma-3b's heads: 8 query heads on one KV head of 256, so a fused
+# round of 16 tokens has 128 rows (two row groups of the paged kernel)
+PALI_HEADS = dict(Hq=8, Hkv=1, D=256)
+# phi3.5-moe at full width with its depth cut: 8 of its 32 layers (all
+# 32 are ~84 GB of bf16 weights, more than the card holds)
+PHI_LAYERS = 8
+
+
+def family_kernels_phase(dev) -> None:
+    """(i0) the attention kernels at head dim 256: the paged pair at
+    paligemma-3b's round (B 8, Q 16 and 1, contexts 0-411) in f32 (held
+    to the plain version at 2e-5) and bf16 (held per row to the f32
+    split plain version, planted faults included), the fused kernel at
+    Q = 1 bitwise the decode kernel; ``flash_prefill`` at Hq 8, Hkv 1,
+    2048 tokens, causal. The bf16 calls are timed beside their plain
+    versions, SDPA and their bounds (logged: the kernels' line keeps
+    the qwen2-1.5b shapes)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.paged_attention import (
+        paged_attention, paged_prefill_attention)
+    F = torch.nn.functional
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+    timer = Timer(dev)
+    ctx = [300, 170, 411, 96, 250, 333, 128, 0]
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        q, kp, vp, bt, qs, ql = kernel_case(dev, dtype, 8, 16, ctx, g,
+                                            **PALI_HEADS)
+        sl, qd = qs + 1, q[:, 0].contiguous()
+        got = paged_prefill_attention(q, kp, vp, bt, qs, ql)
+        got_d = paged_attention(qd, kp, vp, bt, sl)
+        one = paged_prefill_attention(q[:, :1].contiguous(), kp, vp, bt, qs,
+                                      torch.ones_like(ql))
+        e_f = max_valid_err(got, ref.paged_prefill_attention_ref(
+            q, kp, vp, bt, qs, ql), ql)
+        e_d = (got_d.float() - ref.paged_attention_ref(
+            qd, kp, vp, bt, sl).float()).abs().max().item()
+        torch.cuda.synchronize()
+        bitwise = torch.equal(one[:, 0], got_d)
+        log(f"[family] (i0) {name} D=256 Hq=8 Hkv=1: paged_prefill_"
+            f"attention max_abs_err {e_f}, paged_attention {e_d} (tol "
+            f"{TOL[dtype]}); fused Q=1 == decode bitwise: {bitwise}")
+        check(torch.isfinite(got).all().item() and max(e_f, e_d)
+              <= TOL[dtype], f"(i0) paged kernels {name} D=256: "
+              f"{e_f} / {e_d}")
+        check(bitwise, f"(i0) {name} D=256: fused kernel at Q=1 != decode")
+        if dtype != torch.bfloat16:
+            continue
+        split_check("(i0) paligemma round, D=256", got, q, kp, vp, bt, qs,
+                    ql)
+        for kname, fn, plain, args, dec in (
+                ("paged_prefill_attention", paged_prefill_attention,
+                 ref.paged_prefill_attention_ref, (q, kp, vp, bt, qs, ql),
+                 False),
+                ("paged_attention", paged_attention,
+                 ref.paged_attention_ref, (qd, kp, vp, bt, sl), True)):
+            lens = None if dec else ql
+            ms = timer(lambda: fn(*args))
+            plain_ms = timer(lambda: plain(*args))
+            lib_ms = timer(sdpa_yardstick(args[0], kp, vp, bt, args[4],
+                                          lens, dec))
+            bound_ms, bound_by = attention_bound(args[0], kp, args[4], lens,
+                                                 dec)
+            log(f"[family] (i0) {kname} bf16 B=8 Q={1 if dec else 16} "
+                f"Hq=8 Hkv=1 D=256 ctx={ctx}: {ms:.4f} ms (plain "
+                f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+                f"{bound_ms:.5f} ms by {bound_by})")
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        q, k, v = (torch.randn(1, h, 2048, 256, generator=g, device=dev)
+                   .to(dtype) for h in (8, 1, 1))
+        got = flash_prefill(q, k, v)
+        torch.cuda.synchronize()
+        err, ok = allclose_err(got, ref.flash_prefill_ref(q, k, v),
+                               TOL[dtype])
+        if dtype == torch.bfloat16:
+            # and against the plain version in f32 on the same inputs
+            e32, ok32 = allclose_err(got, ref.flash_prefill_ref(
+                q.float(), k.float(), v.float()), TOL[dtype])
+            err, ok = max(err, e32), ok and ok32
+        log(f"[family] (i0) {name} flash_prefill D=256 Hq=8 Hkv=1 "
+            f"Sq=Skv=2048 causal: max_abs_err {err} (tol {TOL[dtype]})")
+        check(torch.isfinite(got).all().item() and ok,
+              f"(i0) flash_prefill {name} D=256: {err}")
+        if dtype == torch.bfloat16:
+            ms = timer(lambda: flash_prefill(q, k, v))
+            plain_ms = timer(lambda: ref.flash_prefill_ref(q, k, v))
+            lib_ms = timer(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True))
+            bound_ms, bound_by = flash_bound(q, k, None, 0)
+            log(f"[family] (i0) flash_prefill bf16 D=256 Hq=8 Hkv=1 "
+                f"Sq=Skv=2048: {ms:.4f} ms (plain {plain_ms:.4f} ms, sdpa "
+                f"{lib_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by})")
+
+
+def family_trace(cfg, params, dev, fused: bool) -> dict:
+    """Phase (b)'s trace (8 slots, prompts of 64-320 tokens, chunk-16
+    grants beside decode tokens, 24 tokens a turn) on one plane, held to
+    the turn contract with finite logits. ``steps`` counts the plane's
+    step launches: fused rounds, or per-token steps."""
+    from repro_torch.serving.paged_engine import PagedRealtimeEngine
+    eng = PagedRealtimeEngine(cfg, params, slots=8, page_size=16,
+                              pages_per_seq=32, device=dev,
+                              fused_step=fused)
+    bad, steps = [], [0]
+    eng.logit_tap = lambda sid, lg: \
+        bad.append(sid) if not np.isfinite(lg).all() else None
+    step = eng._step
+
+    def counted(*a):
+        steps[0] += 1
+        return step(*a)
+    eng._step = counted
+    toks, rounds, fed, secs = mixed_trace(
+        eng, np.random.default_rng(SEED), 8, 24, 16)
+    del eng._step                     # no cycle keeps the engine alive
+    eng.check_invariants()
+    plane = "fused" if fused else "per-token"
+    tag = f"{cfg.name} {str(cfg.activation_dtype())[6:]} {plane}"
+    check(not bad, f"{tag}: non-finite logits for {bad}")
+    check(all(len(t) == 24 for t in toks.values()),
+          f"{tag}: turns did not run to their cap")
+    log(f"[family] {tag}: {rounds} rounds, {fed} tokens fed in "
+        f"{secs:.2f} s = {secs / rounds * 1e3:.2f} ms/round")
+    return dict(tokens=toks, rounds=rounds, secs=secs,
+                steps=eng.fused_launches if fused else steps[0])
+
+
+def free_device() -> None:
+    """Return the memory of dropped models to the card: engines hold
+    their weights in reference cycles, which only the collector frees."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def f32_consuming(tree: dict) -> dict:
+    """``tree``'s f32 twin, each leaf dropped from ``tree`` as its copy is
+    made, so that the two never coexist whole (phi3.5-moe's 8 layers are
+    21 GB in bf16 and 43 GB in f32)."""
+    out = {}
+    for k in list(tree):
+        v = tree.pop(k)
+        out[k] = f32_consuming(v) if isinstance(v, dict) else v.float()
+        del v
+    return out
+
+
+def both_planes(cfg, params, dev) -> dict:
+    return {p: family_trace(cfg, params, dev, p == "fused")
+            for p in ("fused", "per-token")}
+
+
+def family_counts_check(tag, counts, cfg, planes) -> None:
+    """A fused round launches the fused kernel once a layer, a per-token
+    step the decode kernel once a layer; trace (b) takes no dense
+    graft."""
+    L = cfg.num_layers
+    want = {"paged_prefill_attention": L * planes["fused"]["steps"],
+            "paged_attention": L * planes["per-token"]["steps"],
+            "flash_prefill": 0}
+    check(all(counts[k] == n for k, n in want.items()),
+          f"{tag}: launches {counts}, expected {want}")
+
+
+def b1_agreement(tag, cfg, params, dev, planes) -> dict:
+    """How many of each plane's streams equal the B = 1 greedy stream
+    through ``prefill``/``decode_step``."""
+    prompts = trace_prompts(np.random.default_rng(SEED), 8,
+                            cfg.vocab_size)
+    b1 = {f"s{i}": greedy(cfg, params, p, 24, 512, dev)
+          for i, p in enumerate(prompts)}
+    same = {p: sum(r["tokens"][s] == b1[s] for s in b1)
+            for p, r in planes.items()}
+    both = sum(planes["fused"]["tokens"][s]
+               == planes["per-token"]["tokens"][s] for s in b1)
+    log(f"[family] {tag}: streams equal to B = 1: "
+        + ", ".join(f"{p} {n}/{len(b1)}" for p, n in same.items())
+        + f"; equal across the planes {both}/{len(b1)}")
+    return same
+
+
+def paligemma_phase(dev, add) -> None:
+    """(i1) paligemma-3b whole (18 layers, d 2048, MQA, head dim 256,
+    geglu, the embedding scale, vocab 257216) on both planes in bf16,
+    and its f32 twin on both planes and the per-token plane's dense
+    graft, held to the B = 1 greedy streams."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    t0 = time.perf_counter()
+    cfg = get_config("paligemma-3b")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    check(cfg.num_layers == 18 and cfg.d_model == 2048
+          and cfg.resolved_head_dim == 256 and cfg.num_kv_heads == 1
+          and params["embed"].shape == (257216, 2048)
+          and params["embed"].dtype == torch.bfloat16,
+          "not full-width paligemma-3b in bf16")
+    log(f"[family] {cfg.name}: {cfg.num_layers} layers d={cfg.d_model} "
+        f"heads {cfg.num_heads}/{cfg.num_kv_heads} hd "
+        f"{cfg.resolved_head_dim}, {n / 1e9:.3f} B parameters in bf16, "
+        f"random weights (seed {SEED}) in {time.perf_counter() - t0:.1f} s")
+    planes, counts = main_path("(i1) paligemma-3b bf16", both_planes, cfg,
+                               params, dev)
+    add(counts, {})
+    family_counts_check("(i1) bf16", counts, cfg, planes)
+    b1_agreement("(i1) paligemma-3b bf16", cfg, params, dev, planes)
+    c32, p32 = f32_twin(cfg, params)
+    del params
+    free_device()
+
+    def f32_paths():
+        return both_planes(c32, p32, dev), tokenwise_trace(c32, p32, dev)
+    (planes, tw), counts = main_path("(i1) paligemma-3b f32", f32_paths)
+    add(counts, {})
+    # the graft's two turns 0 and the trace's per-token steps
+    check(counts["flash_prefill"] == 2 * cfg.num_layers
+          and counts["paged_attention"] % cfg.num_layers == 0
+          and counts["paged_prefill_attention"]
+          == cfg.num_layers * planes["fused"]["steps"],
+          f"(i1) f32 launches {counts}")
+    same = b1_agreement("(i1) paligemma-3b f32", c32, p32, dev, planes)
+    check(all(n == 8 for n in same.values()),
+          f"(i1) f32 streams differ from B = 1: {same}")
+    rng = np.random.default_rng(SEED + 9)
+    graft = {sid: greedy(c32, p32, rng.integers(0, c32.vocab_size, size=n),
+                         8, 128, dev) for sid, n in (("t0", 40), ("t1", 56))}
+    ok = all(tw["histories"][s][0] == graft[s] for s in graft)
+    log(f"[family] (i1) f32 per-token graft: turns 0 equal to B = 1 {ok}")
+    check(ok, "(i1) the per-token graft's turns 0 differ from B = 1")
+    del p32
+    free_device()
+    log(f"[family] phase (i1): {time.perf_counter() - t0:.1f} s")
+
+
+def phi_phase(dev, add) -> None:
+    """(i2) phi3.5-moe at full width (d 4096, 32/8 heads, 16 experts top-2
+    of d_ff 6400, untied) on its first PHI_LAYERS layers: bf16 at the
+    published capacity factor 1.25 on both planes, held to the turn
+    contract, its streams against B = 1 logged (padding in a fused round
+    takes expert capacity: ROADMAP.md queue 3); the f32 twin at capacity
+    factor E / k = 8, where no token can drop, held to B = 1 on both
+    planes."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    t0 = time.perf_counter()
+    full = get_config("phi3.5-moe-42b-a6.6b")
+    cfg = full.replace(num_layers=PHI_LAYERS)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    m, moe = cfg.moe, params["layers"]["moe"]
+    check(cfg.d_model == 4096 and cfg.num_heads == 32
+          and cfg.num_kv_heads == 8 and m.num_experts == 16 and m.top_k == 2
+          and m.capacity_factor == 1.25
+          and moe["w_up"].shape == (PHI_LAYERS, 16, 4096, 6400)
+          and moe["w_up"].dtype == torch.bfloat16
+          and moe["router"].dtype == torch.float32 and "unembed" in params,
+          "not full-width phi3.5-moe")
+    log(f"[family] {cfg.name}: {PHI_LAYERS} of {full.num_layers} layers "
+        f"d={cfg.d_model}, {m.num_experts} experts top-{m.top_k} of d_ff "
+        f"{m.d_ff_expert}, {n / 1e9:.3f} B parameters in bf16 "
+        f"({full.num_params() / 1e9:.2f} B in all 32), random weights "
+        f"(seed {SEED}) in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    planes, counts = main_path("(i2) phi3.5-moe bf16 cf 1.25", both_planes,
+                               cfg, params, dev)
+    add(counts, {})
+    family_counts_check("(i2) bf16", counts, cfg, planes)
+    b1_agreement("(i2) phi3.5-moe bf16 cf 1.25", cfg, params, dev, planes)
+    del moe
+    free_device()
+    c32 = cfg.replace(dtype="float32", param_dtype="float32",
+                      moe=dataclasses.replace(
+                          m, capacity_factor=m.num_experts / m.top_k))
+    p32 = f32_consuming(params)
+    free_device()
+    planes, counts = main_path("(i2) phi3.5-moe f32 cf 8", both_planes, c32,
+                               p32, dev)
+    add(counts, {})
+    family_counts_check("(i2) f32", counts, c32, planes)
+    same = b1_agreement("(i2) phi3.5-moe f32 cf 8", c32, p32, dev, planes)
+    check(all(n == 8 for n in same.values()),
+          f"(i2) f32 streams differ from B = 1 at cf 8: {same}")
+    del p32
+    free_device()
+    log(f"[family] phase (i2): {time.perf_counter() - t0:.1f} s")
+
+
+def launcher_family_phase() -> None:
+    """(i3) the launcher's scripted demo, bf16, at paligemma-3b whole and
+    at qwen3-4b whole (36 layers, ``qk_norm``, head dim 128 > d / heads):
+    the demo's counts (5 evictions, one sync reload, one preload admitted
+    and hit; the turns' lengths doubled)."""
+    import os
+    for config in ("paligemma-3b", "qwen3-4b"):
+        t0 = time.perf_counter()
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve",
+               "--engine", "real", "--config", config, "--json"]
+        out = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=300, cwd=ROOT,
+                             env=dict(os.environ,
+                                      PYTHONPATH=str(ROOT / "src")))
+        check(out.returncode == 0, f"(i3) {' '.join(cmd[1:])} exited "
+              f"{out.returncode}: {out.stderr[-2000:]}")
+        res = json.loads(out.stdout)
+        pre = res["preload"]
+        gen = {s: [t["generated"] for t in ts]
+               for s, ts in res["turns"].items()}
+        log(f"[family] (i3) {' '.join(cmd[1:])}: "
+            f"{time.perf_counter() - t0:.1f} s; evictions "
+            f"{res['offload_events']}, preload {pre}, generated {gen}")
+        check(res["offload_events"] == 5 and pre["sync_fallbacks"] == 1
+              and pre["admitted"] == 1 and pre["hits"] == 1
+              and gen == {"alice": [20, 4, 12], "bob": [52, 12]},
+              f"(i3) {config} demo counts: {res['offload_events']}, "
+              f"{pre}, {gen}")
+
+
 def cast_params(tree, dtype, key=None):
     """Every leaf to ``dtype`` (no copy where it already is), except the
     mixer's leaves that stay f32 at any type."""
@@ -2340,13 +2702,12 @@ def main() -> int:
     # (e) the paged engine's feature planes at full width, each part
     # with its own counts: every one runs the fused kernel
     t_e = time.perf_counter()
-    feature = {}
     for tag, fn, args in (
             ("prefix plane (e1)", prefix_phase, (cfg, params, dev)),
             ("spec plane (e2)", spec_phase,
              (cfg, params, dev, eng["planes"]["fused"])),
             ("int8 wire tier (e3)", int8_phase, (cfg, params, dev))):
-        feature[tag], counts = main_path(tag, fn, *args)
+        _, counts = main_path(tag, fn, *args)
         add(counts, {"paged_prefill_attention": 0})
     log(f"[feature] phase (e): {time.perf_counter() - t_e:.1f} s")
     # (f) the front end: the live gateway under each policy and the
@@ -2361,21 +2722,21 @@ def main() -> int:
     log(f"[frontend] P90 TTFP: liveserve (f1) {f1['p90_ttfp']:.4f} s, "
         f"fcfs (f2) {f2['p90_ttfp']:.4f} s (random weights; no ordering "
         f"is held)")
-    replay32, counts = main_path("replay twin (f3)", replay_phase, cfg,
-                                 params, dev)
+    _, counts = main_path("replay twin (f3)", replay_phase, cfg, params,
+                          dev)
     add(counts, {"paged_prefill_attention": 0, "paged_attention": 0})
     log(f"[frontend] phase (f): {time.perf_counter() - t_f:.1f} s")
-    # (g) the sharded page plane: its paths ran in the ranks, each rank
-    # counting its own launches from zero just before each path
+    # (g) the sharded page plane on the first CUT_LAYERS layers: its
+    # paths ran in the ranks, each rank counting its own launches from
+    # zero just before each path
     torch.cuda.empty_cache()
-    for tag, counts, (what, _) in sharded_phase(
-            cfg, params, dev, eng["planes"],
-            feature["spec plane (e2)"], replay32):
+    cfg, params = first_layers(cfg, params, CUT_LAYERS)
+    for tag, counts, (what, _) in sharded_phase(cfg, params, dev):
         log(f"[launches] {tag}: {counts}")
         add(counts, {"paged_attention": 0, "flash_prefill": 0}
             if what == "tokenwise" else {"paged_prefill_attention": 0})
-    # (h) the replica fleet, each part with its own counts: every
-    # replica's fused rounds run the fused kernel
+    # (h) the replica fleet on the same layers, each part with its own
+    # counts: every replica's fused rounds run the fused kernel
     t_h = time.perf_counter()
     h1, counts = main_path("fleet twin, handoffs (h1)", fleet_exact_phase,
                            cfg, params, dev)
@@ -2419,6 +2780,16 @@ def main() -> int:
     add(counts, {"ssd_scan": len(prompts) * mcfg.num_layers})
     single_turn_check(mcfg, mparams, dev, prompts, out, 32, 4096)
     profile_prefill(mcfg, mparams, dev, prompts["s0"], 4096)
+    del mparams
+    free_device()
+    # (i) the moe and vlm families: the kernels at head dim 256, then
+    # each model's paths, each with its own counts
+    t_i = time.perf_counter()
+    family_kernels_phase(dev)
+    paligemma_phase(dev, add)
+    phi_phase(dev, add)
+    launcher_family_phase()
+    log(f"[family] phase (i): {time.perf_counter() - t_i:.1f} s")
     for name, n in total.items():
         check(n > 0, f"{name} never launched on a main path")
         rows[name]["launches"] = n

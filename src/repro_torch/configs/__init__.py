@@ -1,3 +1,4 @@
 from repro_torch.configs.registry import (  # noqa: F401
-    ModelConfig, get_config, list_configs, reduced, register,
+    EncoderConfig, MLAConfig, MoEConfig, ModelConfig, RGLRUConfig, SSMConfig,
+    get_config, list_configs, reduced, register,
 )

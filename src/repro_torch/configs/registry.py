@@ -222,9 +222,13 @@ def list_configs() -> list:
 def _ensure_loaded() -> None:
     if _REGISTRY:
         return
-    # the port serves the dense and ssm families so far; the other
-    # architectures land with their model families
-    from repro_torch.configs import mamba2_1_3b, qwen2_1_5b  # noqa: F401
+    # every config of the JAX package, as data; the families the port
+    # does not serve yet (mla, hybrid, encdec) raise in ``init_params``
+    from repro_torch.configs import (  # noqa: F401
+        whisper_tiny, h2o_danube_1_8b, qwen3_4b, nemotron_4_340b,
+        qwen2_1_5b, recurrentgemma_9b, mamba2_1_3b, deepseek_v2_236b,
+        phi3_5_moe, paligemma_3b,
+    )
 
 
 def reduced(cfg: ModelConfig, *, layers: int = 2, d_model: int = 64,

@@ -276,7 +276,10 @@ flash_prefill_bf16(const __nv_bfloat16* __restrict__ q,
   constexpr int DT = D / 8;         // n8 tiles of the output
   constexpr int RPL = kThreadsMma / CH;           // rows per load pass
   constexpr int KV_PASSES = kMmaKeys / RPL;       // of a K/V tile
-  static_assert(RPL % 8 == 0, "a pass keeps the row's swizzle phase");
+  // a pass moves RPL rows on: a multiple of 8 keeps the row's swizzle
+  // phase (row & 7); at D = 256 (RPL 4) it alternates between two
+  constexpr int PHASES = RPL % 8 == 0 ? 1 : 8 / RPL;
+  static_assert(RPL % 8 == 0 || 8 % RPL == 0, "a swizzle phase repeats");
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [kMmaRows][D]
   bf16* ks = qs + kMmaRows * D;                  // [kStages][kMmaKeys][D]
@@ -291,8 +294,7 @@ flash_prefill_bf16(const __nv_bfloat16* __restrict__ q,
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
 
-  // each thread copies chunk `lc` of rows lr, lr + RPL, ...: the row's
-  // swizzle phase (row & 7) is the same in every pass
+  // each thread copies chunk `lc` of rows lr, lr + RPL, ...
   const int lr = tid / CH, lc = tid % CH;
   for (int p = 0; p < kMmaRows / RPL; ++p) {
     const int rr = lr + p * RPL, r = r0 + rr;
@@ -313,8 +315,14 @@ flash_prefill_bf16(const __nv_bfloat16* __restrict__ q,
       k_end > k_begin ? (k_end - k_begin + kMmaKeys - 1) / kMmaKeys : 0;
 
   const size_t kv_base = ((size_t)b * Hkv + h) * Skv * D + lc * 8;
-  const uint32_t ks_lane = mma::smem_addr(ks + mma::swz<D>(lr, lc));
-  const uint32_t vs_lane = mma::smem_addr(vs + mma::swz<D>(lr, lc));
+  // the thread's chunk in a stage, per swizzle phase, less the rows the
+  // passes before it moved on (computed once)
+  uint32_t lane_off[PHASES];
+#pragma unroll
+  for (int i = 0; i < PHASES; ++i)
+    lane_off[i] = (mma::swz<D>(lr + i * RPL, lc) - i * RPL * D) *
+                  sizeof(bf16);
+  const uint32_t ks0 = mma::smem_addr(ks), vs0 = mma::smem_addr(vs);
   auto load_kv = [&](int tile, int stage) {
     const int key0 = k_begin + tile * kMmaKeys + lr;
     const uint32_t so = stage * kMmaKeys * D * sizeof(bf16);
@@ -323,9 +331,10 @@ flash_prefill_bf16(const __nv_bfloat16* __restrict__ q,
       const int key = key0 + p * RPL;
       const bool ok = key < Skv;
       const size_t off = kv_base + (size_t)(ok ? key : 0) * D;
-      const uint32_t o = so + p * RPL * D * sizeof(bf16);
-      mma::cp_async16(ks_lane + o, k + off, ok);
-      mma::cp_async16(vs_lane + o, v + off, ok);
+      const uint32_t o =
+          so + lane_off[p % PHASES] + p * RPL * D * sizeof(bf16);
+      mma::cp_async16(ks0 + o, k + off, ok);
+      mma::cp_async16(vs0 + o, v + off, ok);
     }
   };
   // the first group also carries Q
@@ -542,8 +551,9 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 
 // dtype: 0 = float32, 1 = bfloat16; window <= 0 means none. Returns
 // cudaGetLastError() after the launch (0 on success). The head dims a
-// caller launches: qwen2-1.5b's 128, and 64 for the small card test; add
-// others with the configs that need them.
+// caller launches: 128 (qwen2-1.5b, qwen3-4b, phi3.5-moe), 256
+// (paligemma-3b: 137 KB of shared memory in f32, 160 KB in bf16) and 64
+// for the small card test; add others with the configs that need them.
 extern "C" int flash_prefill_launch(int dtype, const void* q, const void* k,
                                     const void* v, void* out, int B, int Hq,
                                     int Hkv, int Sq, int Skv, int D,
@@ -554,8 +564,10 @@ extern "C" int flash_prefill_launch(int dtype, const void* q, const void* k,
                 scale, s
   if (dtype == 0 && D == 64) return (int)launch_f32<64>(FP_ARGS);
   if (dtype == 0 && D == 128) return (int)launch_f32<128>(FP_ARGS);
+  if (dtype == 0 && D == 256) return (int)launch_f32<256>(FP_ARGS);
   if (dtype == 1 && D == 64) return (int)launch_bf16<64>(FP_ARGS);
   if (dtype == 1 && D == 128) return (int)launch_bf16<128>(FP_ARGS);
+  if (dtype == 1 && D == 256) return (int)launch_bf16<256>(FP_ARGS);
 #undef FP_ARGS
   return (int)cudaErrorInvalidValue;
 }

@@ -562,15 +562,20 @@ cudaError_t launch(const Args& a) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16. The head dims a caller launches:
-// qwen2-1.5b's 128, and 32 for the small card test; add others with the
-// configs that need them.
+// 128 (qwen2-1.5b, qwen3-4b, phi3.5-moe), 256 (paligemma-3b) and 32 for
+// the small card test; add others with the configs that need them. At
+// D = 256 the same body takes 192 KB of shared memory in f32 (96 KB in
+// bf16), under the 227 KB a block may opt into.
 template <bool DECODE>
 int dispatch(int dtype, int D, const Args& a) {
   if (dtype == 0 && D == 32) return (int)launch<float, 32, DECODE>(a);
   if (dtype == 0 && D == 128) return (int)launch<float, 128, DECODE>(a);
+  if (dtype == 0 && D == 256) return (int)launch<float, 256, DECODE>(a);
   if (dtype == 1 && D == 32) return (int)launch<__nv_bfloat16, 32, DECODE>(a);
   if (dtype == 1 && D == 128)
     return (int)launch<__nv_bfloat16, 128, DECODE>(a);
+  if (dtype == 1 && D == 256)
+    return (int)launch<__nv_bfloat16, 256, DECODE>(a);
   return (int)cudaErrorInvalidValue;
 }
 

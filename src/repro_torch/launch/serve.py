@@ -28,10 +28,11 @@ Real engine demo (the scripted multi-turn conversation, no gateway):
   PYTHONPATH=src python -m repro_torch.launch.serve --engine real \\
       --device cpu --config tiny
 
-``--config qwen2-1.5b`` (the default for live and real) serves the
-published width (28 layers, bf16) with random weights drawn from
-``--seed``; ``tiny`` is the reduced two-layer f32 variant the CPU tests
-use. Both run on ``--device cuda`` unless asked for the CPU.
+``--config qwen2-1.5b`` (the default for live and real),
+``paligemma-3b`` (the vlm family's text path, head dim 256) and
+``qwen3-4b`` serve the published width (bf16) with random weights drawn
+from ``--seed``; ``tiny`` is the reduced two-layer f32 variant the CPU
+tests use. All run on ``--device cuda`` unless asked for the CPU.
 
 ``--mesh DxM`` (real and live) shards the paged KV plane over D x M
 ranks (DESIGN.md §9): the launcher builds the kernels, spawns the ranks
@@ -63,12 +64,17 @@ from repro_torch.models.model import init_params
 # the demo's page counts and per-page transfer times are the reference
 # script's at any width: pages hold 8 * token_scale tokens, every
 # prompt and reply is token_scale times longer, and the modeled PCIe
-# rate scales with the page's bytes (a full-width bf16 page is
+# rate scales with the page's bytes (a full-width qwen2-1.5b bf16 page is
 # 28 layers x K,V x 16 slots x 2 heads x 128 x 2 B = 458,752 B, 112x the
-# tiny config's 4,096 B page, so 0.01 GB/s becomes 1.12 GB/s)
+# tiny config's 4,096 B page, so 0.01 GB/s becomes 1.12 GB/s; paligemma-3b
+# 18 x 2 x 16 x 1 x 256 x 2 B = 294,912 B, 0.72 GB/s; qwen3-4b
+# 36 x 2 x 16 x 8 x 128 x 2 B = 2,359,296 B, 5.76 GB/s). phi3.5-moe is no
+# choice: its 32 layers (~84 GB in bf16) do not fit one card
 DEMOS = {
     "tiny": dict(page_size=8, token_scale=1, pcie_gb_s=0.01),
     "qwen2-1.5b": dict(page_size=16, token_scale=2, pcie_gb_s=1.12),
+    "paligemma-3b": dict(page_size=16, token_scale=2, pcie_gb_s=0.72),
+    "qwen3-4b": dict(page_size=16, token_scale=2, pcie_gb_s=5.76),
 }
 
 # the live gateway's geometry and trace clamps per config: ``tiny`` is
@@ -81,15 +87,19 @@ DEMOS = {
 # 16 (budget None = slots + 16): a round of ~45 ms on the card adds
 # less than 80 ms of audio to a slot, so slots spend long stretches
 # below the playback-safety buffer, and at a budget of 16 their decode
-# tokens would leave no room for any chunk
+# tokens would leave no room for any chunk. paligemma-3b and qwen3-4b
+# serve qwen2-1.5b's geometry
+_FULL_WIDTH_LIVE = dict(page_size=16, pages_per_seq=40, max_prompt=256,
+                        max_response=64, max_turns=2,
+                        audio_per_token_s=0.08, scale=1.0,
+                        round_token_budget=None)
 LIVE = {
     "tiny": dict(page_size=8, pages_per_seq=8, max_prompt=16,
                  max_response=12, max_turns=2, audio_per_token_s=0.25,
                  scale=4.0, round_token_budget=16),
-    "qwen2-1.5b": dict(page_size=16, pages_per_seq=40, max_prompt=256,
-                       max_response=64, max_turns=2,
-                       audio_per_token_s=0.08, scale=1.0,
-                       round_token_budget=None),
+    "qwen2-1.5b": _FULL_WIDTH_LIVE,
+    "paligemma-3b": _FULL_WIDTH_LIVE,
+    "qwen3-4b": _FULL_WIDTH_LIVE,
 }
 PREFILL_CHUNK = 16
 

@@ -1,12 +1,16 @@
-"""Model assembly: parameters, embedding, unembedding, the dense MLP
-block, and the ring-cache ``prefill``/``decode_step`` of the dense and
-ssm families (those branches of the JAX package's ``models/model.py``).
+"""Model assembly: parameters, embedding, unembedding, the MLP block
+(dense or moe), and the ring-cache ``prefill``/``decode_step`` of the
+dense, moe, vlm and ssm families (those branches of the JAX package's
+``models/model.py``). The vlm family runs its text path: the stub
+modality frontend (``frontend_embeds`` and the prefix-LM mask) is not
+ported.
 
 Parameters are a dict of tensors in the JAX package's pytree layout:
 ``embed``, ``final_norm``, optional ``unembed``, layer-stacked
 ``layers`` (every leaf has a leading ``[num_layers]`` axis) and an
-optional ``layers_pre`` list. The reference scans the stacked layers;
-the port loops over them (``layer_params``).
+optional ``layers_pre`` list (the moe family's leading dense layers).
+The reference scans the stacked layers; the port loops over them
+(``layer_params``).
 
 KV caches are ring buffers of ``W`` slots (W = capacity, or the
 attention window for sliding-window configs); ``kv_pos`` tracks
@@ -25,10 +29,12 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_prefill import flash_prefill
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 
-# the mixer leaves the reference keeps in f32 at any param_dtype
-F32_LEAVES = ("A_log", "D", "dt_bias")
+# the leaves the reference keeps in f32 at any param_dtype: the mixer's
+# and the moe router
+F32_LEAVES = ("A_log", "D", "dt_bias", "router")
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -37,8 +43,9 @@ def _not_ported(what: str) -> NotImplementedError:
 
 
 def _check_ported(cfg) -> None:
-    """The ring-cache model serves the dense and ssm families."""
-    if cfg.family not in ("dense", "ssm"):
+    """The ring-cache model serves the dense, moe, vlm and ssm
+    families."""
+    if cfg.family not in ("dense", "moe", "vlm", "ssm"):
         raise _not_ported(f"the {cfg.family} family")
     if cfg.mla is not None:
         raise _not_ported("mla attention")
@@ -55,12 +62,17 @@ def _stack(trees):
     return torch.stack(trees)
 
 
-def _dense_layer_init(generator, cfg, dtype, device):
+def _dense_layer_init(generator, cfg, dtype, device, *, d_ff=None,
+                      moe_layer=False):
     zeros = torch.zeros((cfg.d_model,), dtype=dtype, device=device)
-    return {"ln1": zeros, "ln2": zeros.clone(),
-            "attn": L.attn_init(generator, cfg, dtype, device),
-            "mlp": L.mlp_init(generator, cfg.d_model, cfg.d_ff,
-                              cfg.mlp_kind, dtype, device)}
+    p = {"ln1": zeros, "ln2": zeros.clone(),
+         "attn": L.attn_init(generator, cfg, dtype, device)}
+    if moe_layer:
+        p["moe"] = moe_mod.moe_init(generator, cfg, dtype, device)
+    else:
+        p["mlp"] = L.mlp_init(generator, cfg.d_model, d_ff or cfg.d_ff,
+                              cfg.mlp_kind, dtype, device)
+    return p
 
 
 def _ssm_layer_init(generator, cfg, dtype, device):
@@ -69,10 +81,11 @@ def _ssm_layer_init(generator, cfg, dtype, device):
 
 
 def init_params(cfg, generator: torch.Generator, device):
-    """Random weights for the dense and ssm families, drawn from
-    ``generator`` (which must live on ``device``) with the reference's
-    schemes. The numbers differ from JAX's for the same seed; tests carry
-    JAX's weights across with ``params_from_numpy`` instead."""
+    """Random weights for the dense, moe, vlm and ssm families, drawn
+    from ``generator`` (which must live on ``device``) with the
+    reference's schemes. The numbers differ from JAX's for the same
+    seed; tests carry JAX's weights across with ``params_from_numpy``
+    instead."""
     _check_ported(cfg)
     dtype = getattr(torch, cfg.param_dtype)
     params = {
@@ -85,9 +98,22 @@ def init_params(cfg, generator: torch.Generator, device):
         params["unembed"] = L.dense_init(
             generator, (cfg.d_model, cfg.vocab_size), cfg.d_model, dtype,
             device)
-    layer = _dense_layer_init if cfg.family == "dense" else _ssm_layer_init
+    n = cfg.num_layers
+    if cfg.family == "moe":
+        # the leading dense layers (deepseek-v2 style), then moe layers
+        nd = cfg.moe.first_dense_layers
+        if nd:
+            params["layers_pre"] = [
+                _dense_layer_init(generator, cfg, dtype, device,
+                                  d_ff=cfg.moe.d_ff_dense)
+                for _ in range(nd)]
+        params["layers"] = _stack([
+            _dense_layer_init(generator, cfg, dtype, device, moe_layer=True)
+            for _ in range(n - nd)])
+        return params
+    layer = _ssm_layer_init if cfg.family == "ssm" else _dense_layer_init
     params["layers"] = _stack([layer(generator, cfg, dtype, device)
-                               for _ in range(cfg.num_layers)])
+                               for _ in range(n)])
     return params
 
 
@@ -107,7 +133,8 @@ def params_from_numpy(tree, device, dtype=None):
     """The JAX package's parameter pytree, as nested dicts (and the
     ``layers_pre`` list) of numpy arrays, to the same tree of tensors on
     ``device``. Floating leaves are cast to ``dtype`` when given, except
-    the mixer's ``F32_LEAVES``, which stay f32 as in the reference."""
+    the ``F32_LEAVES`` (the mixer's and the moe router), which stay f32
+    as in the reference."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device, torch.float32
                                      if dtype is not None
@@ -153,10 +180,11 @@ def _logits(cfg, params, x):
 
 
 def _mlp_block(cfg, lp, x):
-    if "moe" in lp:
-        raise NotImplementedError(
-            "moe layers are not ported (ROADMAP queue 1 item 6)")
+    """The MLP half of a layer: dense, or the single-device moe (its aux
+    loss, a training term, is dropped)."""
     h = L.rms_norm(x, lp["ln2"], cfg.rms_eps)
+    if "moe" in lp:
+        return x + moe_mod.moe_apply(lp["moe"], h, cfg)[0]
     return x + L.mlp_apply(lp["mlp"], h, cfg.mlp_kind)
 
 
@@ -215,7 +243,7 @@ def _decode_mask(cfg, q_pos, kv_pos, window):
 # prefill
 # ======================================================================
 def prefill(cfg, params, tokens, cache, *, seq_lens=None, prefix_len=None,
-            plain: bool = False):
+            frontend_embeds=None, plain: bool = False):
     """Run the full prompt, fill the cache. Returns (last_logits [B, V],
     cache).
 
@@ -229,6 +257,8 @@ def prefill(cfg, params, tokens, cache, *, seq_lens=None, prefix_len=None,
     hold the kernels' prefill against it; it is never a fallback."""
     if prefix_len is not None:
         raise _not_ported("prefix_len (the prefix-LM mask)")
+    if frontend_embeds is not None:
+        raise _not_ported("frontend_embeds (the stub modality frontend)")
     x = _embed(cfg, params, tokens)
     B, S, _ = x.shape
     dev = x.device

@@ -1,0 +1,146 @@
+"""Mixture-of-Experts layer: the single-device path (``moe_local``) of
+the JAX package's ``models/moe.py``.
+
+Routing is f32 softmax over the router logits, top-k, renormalised;
+dispatch is gather-based (a stable argsort of the chosen experts gives
+an ``[E, C]`` token-index table, row T of the token array being the
+zero pad), so the expert products are batched matmuls over each
+expert's C slots and their cost scales with top_k. Tokens past an
+expert's capacity are dropped (they keep the residual path), as in the
+published dropping implementations.
+
+Capacity is sized from every token of the batch, padding included, as
+the reference sizes it: identical padding tokens pick the same experts
+and, ranked first by the stable sort, can take the capacity real tokens
+of later rows need. The port keeps that behaviour to stay token-exact
+with the reference (ROADMAP.md queue 3).
+
+The expert-parallel path (``moe_ep``: all_to_all over a mesh's expert
+axis) is not ported; ``moe_apply`` with a mesh raises.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import dense_init, mlp_apply, mlp_init
+
+
+# ----------------------------------------------------------------- init
+def moe_init(generator, cfg, dtype, device):
+    """The reference's tree: an f32 router ``[d, E]`` at any
+    ``param_dtype``, per-expert stacked ``w_gate``/``w_up`` ``[E, d, f]``
+    and ``w_down`` ``[E, f, d]``, and a swiglu ``shared`` MLP when the
+    config has shared experts."""
+    m = cfg.moe
+    d, f, E = cfg.d_model, m.d_ff_expert, m.num_experts
+
+    def experts(shape, fan_in):
+        return torch.stack([dense_init(generator, shape, fan_in, dtype,
+                                       device) for _ in range(E)])
+
+    p = {"router": dense_init(generator, (d, E), d, torch.float32, device),
+         "w_gate": experts((d, f), d),
+         "w_up": experts((d, f), d),
+         "w_down": experts((f, d), f)}
+    if m.num_shared_experts:
+        p["shared"] = mlp_init(generator, d, f * m.num_shared_experts,
+                               "swiglu", dtype, device)
+    return p
+
+
+# ----------------------------------------------------------------- routing
+def route(router_w, x2d, top_k: int, *, normalize: bool = True):
+    """x2d [T, d] -> (weights [T, k] f32, sel [T, k] int64, aux_loss).
+
+    The logits are an f32 product of x and the f32 router, computed in
+    f64 and rounded: a product that cannot take TF32 on the card, with
+    nothing global set. The top k come from a stable descending sort,
+    so ties go to the lower expert index as in ``jax.lax.top_k``."""
+    logits = (x2d.double() @ router_w.double()).float()
+    probs = torch.softmax(logits, dim=-1)
+    weights, sel = torch.sort(probs, dim=-1, descending=True, stable=True)
+    weights, sel = weights[:, :top_k], sel[:, :top_k]
+    if normalize:
+        weights = weights / (weights.sum(-1, keepdim=True) + 1e-9)
+    # Switch-style load-balance loss: E * sum_e f_e * P_e
+    E = router_w.shape[-1]
+    f_e = F.one_hot(sel, E).float().mean(dim=(0, 1))
+    p_e = probs.mean(dim=0)
+    aux = E * (f_e * p_e).sum()
+    return weights, sel, aux
+
+
+def _capacity(tokens: int, top_k: int, num_experts: int, cf: float) -> int:
+    c = int(math.ceil(tokens * top_k / num_experts * cf))
+    return max(4, -(-c // 4) * 4)  # round up to a multiple of 4
+
+
+def build_dispatch(sel, weights, num_experts: int, capacity: int):
+    """argsort-based dispatch tables: (tok_idx [E, C] int64, an index
+    into the padded token array where row T is the zero pad; w [E, C]
+    f32 combine weights, 0 on empty slots)."""
+    T, k = sel.shape
+    dev = sel.device
+    flat_e = sel.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)      # slots sorted by expert
+    sorted_e = flat_e[order]
+    starts = torch.searchsorted(sorted_e, torch.arange(
+        num_experts, device=dev, dtype=sorted_e.dtype))
+    rank = torch.arange(T * k, device=dev) - starts[sorted_e]
+    keep = rank < capacity
+    # a dropped slot writes the extra entry E * C, cut off below
+    dest = torch.where(keep, sorted_e * capacity + rank,
+                       num_experts * capacity)
+    tok_idx = torch.full((num_experts * capacity + 1,), T,
+                         dtype=torch.int64, device=dev)
+    tok_idx[dest] = torch.where(keep, order // k, T)
+    w_tab = torch.zeros((num_experts * capacity + 1,), dtype=torch.float32,
+                        device=dev)
+    w_tab[dest] = torch.where(keep, weights.reshape(-1)[order].float(),
+                              0.0)
+    return (tok_idx[:-1].reshape(num_experts, capacity),
+            w_tab[:-1].reshape(num_experts, capacity))
+
+
+def expert_ffn(params, xe):
+    """xe [E, C, d] through each expert's swiglu MLP -> [E, C, d]."""
+    h = F.silu(torch.bmm(xe, params["w_gate"]))
+    h = h * torch.bmm(xe, params["w_up"])
+    return torch.bmm(h, params["w_down"])
+
+
+# ----------------------------------------------------------------- local path
+def moe_local(params, x, cfg):
+    """x [B, S, d] -> (y, aux_loss). Every token of the batch is routed
+    and counts toward the capacity, padding included."""
+    m = cfg.moe
+    B, S, d = x.shape
+    T = B * S
+    x2 = x.reshape(T, d)
+    weights, sel, aux = route(params["router"], x2, m.top_k)
+    C = _capacity(T, m.top_k, m.num_experts, m.capacity_factor)
+    tok_idx, w_tab = build_dispatch(sel, weights, m.num_experts, C)
+    x_pad = torch.cat([x2, x2.new_zeros((1, d))])
+    ye = expert_ffn(params, x_pad[tok_idx])             # [E, C, d]
+    # Each real token receives one add per expert that kept it, onto a
+    # zero row: with top_k <= 2 that is x = (0 + a) + b, the same in
+    # any order, so ``index_add_``'s unordered atomics on the card give
+    # the reference's sums exactly. From top_k 3 on the order matters.
+    y = x2.new_zeros((T + 1, d))
+    y.index_add_(0, tok_idx.reshape(-1),
+                 (ye * w_tab[..., None].to(ye.dtype)).reshape(-1, d))
+    y = y[:T].reshape(B, S, d)
+    if m.num_shared_experts:
+        y = y + mlp_apply(params["shared"], x, "swiglu")
+    return y, aux
+
+
+def moe_apply(params, x, cfg, mesh=None):
+    if mesh is not None:
+        raise NotImplementedError(
+            "the expert-parallel moe over a mesh (moe_ep) is not ported "
+            "yet (ROADMAP.md queue 1 item 6)")
+    return moe_local(params, x, cfg)

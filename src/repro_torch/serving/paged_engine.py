@@ -62,8 +62,10 @@ touches the device, the prefix plane's deep copy of shared pages in
 ``migrate_out_begin``, reads them through the device plane as an
 offload chunk does.
 
-Out of this slice (raising ``NotImplementedError`` naming its ROADMAP
-item): the moe and vlm families.
+Families: the global-attention stacks, as in the reference: dense, moe
+(every round routes each of its tokens, padding included, through the
+single-device ``moe_local``; on a mesh every rank runs it on the
+replicated weights) and vlm (its text path).
 """
 from __future__ import annotations
 
@@ -96,11 +98,6 @@ from repro_torch.serving.block_tables import BatchTables, \
 from repro_torch.serving.engine import RoundLimitExceeded, _StepClock, \
     schedule_round
 from repro_torch.serving.spec_decode import build_proposer
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue 1 item {item})")
 
 
 # ======================================================================
@@ -284,9 +281,7 @@ class PagedRealtimeEngine:
                  kv_quant: str = "fp32",
                  spec_decode: int = 0,
                  proposer=None):
-        if cfg.family in ("moe", "vlm"):
-            raise _not_ported(f"the {cfg.family} family", "6")
-        assert cfg.family == "dense" and cfg.mla is None \
+        assert cfg.family in ("dense", "moe", "vlm") and cfg.mla is None \
             and cfg.sliding_window is None, \
             "paged engine serves global-attention KV families"
         assert kv_policy in ("next_use", "lru"), \

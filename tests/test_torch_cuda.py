@@ -485,3 +485,59 @@ def test_cuda_cow_copy_and_prefix_plane():
         if prefix:
             assert eng.cow_copies >= 1 and eng.prefix_cache.hits == 2
     assert hist[True] == hist[False]
+
+
+# ======================================================================
+# head dim 256 (paligemma-3b: 8 query heads on one KV head)
+# ======================================================================
+D256_PAGED_CASES = [  # B, Q, Hq, Hkv, D, page, ctx
+    (8, 16, 8, 1, 256, 16, [300, 170, 411, 96, 250, 333, 128, 0]),
+    (3, 5, 8, 1, 256, 16, [129, 0, 40]),
+]
+D256_FLASH_SHAPES = [  # B, Hq, Hkv, Sq, Skv, D, window, q_offset
+    (1, 8, 1, 200, 200, 256, None, 0),
+    (2, 8, 1, 77, 141, 256, None, 64),       # a chunk after a prefix
+    (1, 8, 1, 130, 130, 256, 48, 0),         # sliding window
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_head_dim_256_matches_plain(dtype):
+    """On the card, at head dim 256 with G = 8 (a fused round's 128 rows
+    are two row groups): both paged kernels and ``flash_prefill`` against
+    their plain versions, the Q = 1 fused kernel bitwise the decode
+    kernel, and in bf16 the fused kernel against the f32 split plain
+    version per row (REL_TOL), a tolerance each planted fault breaks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the H100)")
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    tol = TOL[dtype]
+    for B, Q, Hq, Hkv, D, page, ctx in D256_PAGED_CASES:
+        q, kp, vp, bt, qs, ql = _long_case("cuda", TDT[dtype], B, Q, Hq,
+                                           Hkv, D, page, ctx, seed=2)
+        got = paged_prefill_attention(q, kp, vp, bt, qs, ql)
+        want = tref.paged_prefill_attention_ref(q, kp, vp, bt, qs, ql)
+        _valid_close(got.float().cpu(), want.float().cpu(), ql.cpu(), tol)
+        dec = paged_attention(q[:, 0].contiguous(), kp, vp, bt, qs + 1)
+        want_d = tref.paged_attention_ref(q[:, 0].contiguous(), kp, vp, bt,
+                                          qs + 1)
+        torch.testing.assert_close(dec.float(), want_d.float(), rtol=tol,
+                                   atol=tol)
+        one = paged_prefill_attention(q[:, :1].contiguous(), kp, vp, bt, qs,
+                                      torch.ones_like(ql))
+        assert torch.equal(one[:, 0], dec)
+        if dtype == "bfloat16":
+            f32 = [x.float() for x in (q, kp, vp)]
+            split = tref.paged_prefill_attention_split_ref(*f32, bt, qs, ql)
+            assert _row_scaled_err(got, split, ql) <= REL_TOL
+            for name, bad in _planted_faults(*f32, bt, qs, ql).items():
+                assert _row_scaled_err(bad, split, ql) > REL_TOL, name
+    for B, Hq, Hkv, Sq, Skv, D, window, q_offset in D256_FLASH_SHAPES:
+        q, k, v = (torch.from_numpy(a).to("cuda", TDT[dtype]) for a in
+                   flash_case(0, B, Hq, Hkv, Sq, Skv, D))
+        got = flash_prefill(q, k, v, window=window, q_offset=q_offset)
+        want = tref.flash_prefill_ref(q, k, v, window=window,
+                                      q_offset=q_offset)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)

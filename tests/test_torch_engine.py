@@ -325,10 +325,17 @@ def test_bf16_offload_reload_bit_exact():
 
 @pytest.mark.parametrize("family,item", [("moe", "item 6")])
 def test_out_of_slice_options_raise(tiny, family, item):
-    _, _, tcfg, tp = tiny
+    """What the family still lacks in the port: the paged engine serves
+    the moe family, but its expert-parallel layer over a mesh
+    (``moe_ep``) is not ported."""
+    from repro_torch.models.moe import moe_apply
+    cfg = reduced(get_config("phi3.5-moe-42b-a6.6b"), layers=2,
+                  d_model=64, vocab=331)
+    assert cfg.family == family
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    lp = tpe.layer_params(params)[0]["moe"]
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        tpe.PagedRealtimeEngine(tcfg.replace(family=family), tp,
-                                device="cpu")
+        moe_apply(lp, torch.zeros((1, 2, 64)), cfg, mesh=object())
 
 
 def _drive_add_session(make, cfg, seed):

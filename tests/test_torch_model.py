@@ -23,7 +23,7 @@ from repro.configs import get_config as j_get_config
 from repro.configs import reduced as j_reduced
 from repro.models import init_params as j_init_params
 from repro.models import model as JM
-from repro_torch.configs import get_config, reduced
+from repro_torch.configs import MLAConfig, get_config, reduced
 from repro_torch.models import model as TM
 
 LOGIT_TOL = 1e-4
@@ -174,7 +174,8 @@ def test_params_from_numpy_keeps_mixer_f32_leaves(param_dtype):
 
 
 @pytest.mark.parametrize("kw", [dict(attention_impl="surrogate"),
-                                dict(family="hybrid"), dict(family="moe"),
+                                dict(family="hybrid"),
+                                dict(mla=MLAConfig(32, 32, 16, 8, 16)),
                                 dict(family="encdec")])
 def test_unported_model_options_raise(kw):
     cfg = reduced(get_config("qwen2-1.5b"), layers=2, d_model=64,

@@ -1,0 +1,219 @@
+"""The port's moe layer (``repro_torch/models/moe.py``) against the JAX
+package's ``repro/models/moe.py``, function by function, on seeded numpy
+inputs handed to both.
+
+Routing is checked exactly where it is discrete (the chosen experts,
+the capacity, the dispatch tables) and to the type's tolerance where it
+is arithmetic: f32 2e-5 (XLA and ATen sum in other orders; the port's
+router product is computed in f64 and rounded, so it cannot take TF32
+on the card), bf16 2e-2 (the expert products round to bf16 at other
+places in the two frameworks). The batches include runs of identical
+padding-like rows, which tie on every expert and are the case where the
+stable sort's order decides who keeps capacity.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as j_get_config
+from repro.configs import reduced as j_reduced
+from repro.models import moe as jmoe
+from repro_torch.configs import get_config, reduced
+from repro_torch.models import moe as tmoe
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+D, F = 32, 48
+
+
+def _x(rng, T, pad_rows):
+    """[T, D] f32 rows; the last ``pad_rows`` all equal (a padding
+    token's embedding repeated)."""
+    x = rng.standard_normal((T, D)).astype(np.float32)
+    if pad_rows:
+        x[T - pad_rows:] = x[T - pad_rows - 1]
+    return x
+
+
+def _router(rng, E):
+    return (rng.standard_normal((D, E)) / np.sqrt(D)).astype(np.float32)
+
+
+def _j(a, dtype="float32"):
+    return jnp.asarray(a, getattr(jnp, dtype))
+
+
+def _t(a, dtype="float32"):
+    return torch.from_numpy(np.asarray(a)).to(getattr(torch, dtype))
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("E,k", [(4, 1), (4, 2), (16, 1), (16, 2)])
+def test_route_matches_jax(E, k, dtype):
+    """Weights, chosen experts and the aux loss; x in either type, the
+    router f32."""
+    rng = np.random.default_rng(E * 10 + k)
+    x, w = _x(rng, 40, 12), _router(rng, E)
+    jw, js, ja = jmoe.route(_j(w), _j(x, dtype), k)
+    tw, ts, ta = tmoe.route(_t(w), _t(x, dtype), k)
+    assert tw.dtype == torch.float32
+    assert np.array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_allclose(tw.numpy(), _np(jw), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(float(ta), float(ja), rtol=2e-5, atol=2e-5)
+
+
+def test_route_ties_take_the_lower_expert():
+    """Equal probabilities (a zero router) pick experts 0, 1, ... in
+    order, as ``jax.lax.top_k`` does."""
+    x = np.ones((3, D), np.float32)
+    w = np.zeros((D, 8), np.float32)
+    _, js, _ = jmoe.route(_j(w), _j(x), 3)
+    _, ts, _ = tmoe.route(_t(w), _t(x), 3)
+    assert np.array_equal(ts.numpy(), np.asarray(js))
+    assert ts.tolist() == [[0, 1, 2]] * 3
+
+
+def test_capacity_matches_jax():
+    for T in (1, 3, 8, 37, 128, 1000):
+        for k in (1, 2):
+            for E in (4, 16):
+                for cf in (0.25, 1.25, 8.0):
+                    assert tmoe._capacity(T, k, E, cf) == \
+                        jmoe._capacity(T, k, E, cf)
+
+
+@pytest.mark.parametrize("cf", [0.25, 1.25, 8.0])
+@pytest.mark.parametrize("E,k", [(4, 1), (4, 2), (16, 2)])
+def test_build_dispatch_matches_jax(E, k, cf):
+    """The [E, C] tables equal exactly, from the same routing (a batch
+    whose last rows all pick the same experts)."""
+    rng = np.random.default_rng(7)
+    T = 48
+    sel = np.stack([rng.permutation(E)[:k] for _ in range(T)])
+    sel[T - 20:] = sel[T - 21]
+    wts = rng.random((T, k)).astype(np.float32)
+    C = jmoe._capacity(T, k, E, cf)
+    jt, jw = jmoe.build_dispatch(jnp.asarray(sel, jnp.int32), _j(wts), E, C)
+    tt, tw = tmoe.build_dispatch(torch.from_numpy(sel), _t(wts), E, C)
+    assert tt.shape == (E, C)
+    assert np.array_equal(tt.numpy(), np.asarray(jt))
+    assert np.array_equal(tw.numpy(), np.asarray(jw))
+
+
+def _expert_params(rng, E, dtype, shared=False):
+    p = {"w_gate": rng.standard_normal((E, D, F)) / np.sqrt(D),
+         "w_up": rng.standard_normal((E, D, F)) / np.sqrt(D),
+         "w_down": rng.standard_normal((E, F, D)) / np.sqrt(F),
+         "router": _router(rng, E)}
+    if shared:
+        p["shared"] = {"w_gate": rng.standard_normal((D, F)) / np.sqrt(D),
+                       "w_up": rng.standard_normal((D, F)) / np.sqrt(D),
+                       "w_down": rng.standard_normal((F, D)) / np.sqrt(F)}
+    p = jax.tree.map(lambda a: np.asarray(a, np.float32), p)
+
+    def conv(fn, tree, key=None):
+        if isinstance(tree, dict):
+            return {k: conv(fn, v, k) for k, v in tree.items()}
+        return fn(tree, "float32" if key == "router" else dtype)
+    return conv(_j, p), conv(_t, p)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_expert_ffn_matches_jax(dtype):
+    rng = np.random.default_rng(3)
+    jp, tp = _expert_params(rng, 4, dtype)
+    xe = rng.standard_normal((4, 12, D)).astype(np.float32)
+    got = tmoe.expert_ffn(tp, _t(xe, dtype))
+    want = jmoe.expert_ffn(jp, _j(xe, dtype))
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+def _cfgs(E, k, cf, shared):
+    def one(get, red):
+        cfg = red(get("phi3.5-moe-42b-a6.6b"), layers=2, d_model=D,
+                  vocab=64)
+        return cfg.replace(moe=dataclasses.replace(
+            cfg.moe, num_experts=E, top_k=k, capacity_factor=cf,
+            num_shared_experts=int(shared), d_ff_expert=F))
+    return one(j_get_config, j_reduced), one(get_config, reduced)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shared", [False, True], ids=["routed", "shared"])
+@pytest.mark.parametrize("cf", [0.25, 1.25, 8.0])
+@pytest.mark.parametrize("E,k", [(4, 2), (16, 1), (16, 2)])
+def test_moe_local_matches_jax(E, k, cf, shared, dtype):
+    """x [4, 12, d] whose last 26 tokens are one repeated padding-like
+    row: at cf 0.25 and 1.25 they take capacity real tokens would need,
+    in both packages alike."""
+    rng = np.random.default_rng(E + k)
+    jcfg, tcfg = _cfgs(E, k, cf, shared)
+    jp, tp = _expert_params(rng, E, dtype, shared)
+    x = _x(rng, 48, 26).reshape(4, 12, D)
+    ty, ta = tmoe.moe_local(tp, _t(x, dtype), tcfg)
+    jy, ja = jmoe.moe_local(jp, _j(x, dtype), jcfg)
+    assert ty.dtype == getattr(torch, dtype) and ty.shape == (4, 12, D)
+    np.testing.assert_allclose(_np(ty), _np(jy), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    np.testing.assert_allclose(float(ta), float(ja), rtol=2e-5, atol=2e-5)
+    via_apply = tmoe.moe_apply(tp, _t(x, dtype), tcfg)[0]
+    assert torch.equal(via_apply, ty)
+
+
+def test_padding_takes_capacity():
+    """The reference's behaviour the port keeps: at cf 1.25 the repeated
+    padding rows, ranked first, fill their two experts, so a real token
+    that picked the same experts is dropped (its output 0) though it
+    would be kept in a batch without them."""
+    rng = np.random.default_rng(11)
+    E, k, cf = 16, 2, 1.25
+    _, tcfg = _cfgs(E, k, cf, False)
+    _, tp = _expert_params(rng, E, "float32")
+    pad = rng.standard_normal(D).astype(np.float32)
+    _, sel_pad, _ = tmoe.route(tp["router"], _t(pad[None]), k)
+    # a real token that routes to the padding token's experts
+    real = None
+    for _ in range(5000):
+        cand = rng.standard_normal(D).astype(np.float32)
+        _, s, _ = tmoe.route(tp["router"], _t(cand[None]), k)
+        if set(s[0].tolist()) == set(sel_pad[0].tolist()):
+            real = cand
+            break
+    assert real is not None
+    x = np.concatenate([np.repeat(pad[None], 40, 0), real[None],
+                        rng.standard_normal((7, D)).astype(np.float32)])
+    y, _ = tmoe.moe_local(tp, _t(x).reshape(1, 48, D), tcfg)
+    assert torch.count_nonzero(y[0, 40]) == 0       # dropped
+    alone, _ = tmoe.moe_local(tp, _t(x[40:]).reshape(1, 8, D), tcfg)
+    assert torch.count_nonzero(alone[0, 0]) > 0     # kept without padding
+
+
+def test_moe_init_tree_matches_jax():
+    """The port's init gives the reference's tree, shapes and types: the
+    router f32 at a bf16 ``param_dtype``."""
+    jcfg, tcfg = _cfgs(16, 2, 1.25, True)
+    want = jax.tree.map(lambda a: (a.shape, str(a.dtype)), jmoe.moe_init(
+        jax.random.PRNGKey(0), jcfg, jnp.bfloat16))
+    got = jax.tree.map(
+        lambda t: (tuple(t.shape), str(t.dtype).replace("torch.", "")),
+        tmoe.moe_init(torch.Generator().manual_seed(0), tcfg,
+                      torch.bfloat16, "cpu"))
+    assert got == want
+    assert got["router"] == ((D, 16), "float32")
+
+
+def test_moe_apply_on_a_mesh_raises():
+    _, tcfg = _cfgs(4, 2, 1.25, False)
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        tmoe.moe_apply({}, torch.zeros(1, 2, D), tcfg, mesh=object())

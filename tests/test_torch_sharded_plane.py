@@ -13,7 +13,10 @@
   ``PagedRealtimeEngine`` on the reference's ``_drive_trace`` on both
   planes, with ``prefix_cache=True`` (a shared prefix, copy-on-write
   included), ``kv_quant="int8"`` and ``spec_decode=3``: token for token
-  the single-device port's and the JAX single-device engine's, in f32.
+  the single-device port's and the JAX single-device engine's, in f32;
+  and the moe family's sharded engine (heads, M 2) on both planes, the
+  moe layer running on every rank, token for token the single-device
+  port's.
 - ``run_replay`` at M 4 on a pool tight enough to evict, record for
   record the single-device port's; the live gateway on an M 2 engine;
   the launcher's ``--mesh 1x2``.
@@ -354,6 +357,35 @@ def test_sharded_engine_token_exact(mesh_runs, single_runs, M, name):
     assert got["reloaded"] > 0 and got["offload_events"]
     if name == "prefix":
         assert got["cow_copies"] > 0
+
+
+def test_sharded_moe_engine_token_exact(tmp_path):
+    """The moe family on the heads layout (M 2), every rank running the
+    moe layer on the replicated weights: the trace on both planes, in
+    f32, token for token and page for page the single-device port's.
+    The reference's weights are perturbed so the streams are not one
+    repeated token."""
+    name = "phi3.5-moe-42b-a6.6b"
+    jcfg = j_reduced(j_get_config(name), **CFG_KW)
+    rng = np.random.default_rng(0)
+    weights = jax.tree.map(
+        lambda a: (np.asarray(a) + 0.1 * rng.standard_normal(a.shape))
+        .astype(a.dtype), j_init_params(jcfg, jax.random.PRNGKey(0)))
+    tcfg = reduced(get_config(name), **CFG_KW)
+    assert tcfg.family == "moe"
+    tp = params_from_numpy(weights, "cpu")
+    variants = ["fused", "per-token"]
+    got = spawn("1x2", ranks.engines_rank, CFG_KW, weights, variants, name,
+                device="cpu", timeout_s=SPAWN_S,
+                store_dir=str(tmp_path))[0]
+    for v in variants:
+        want = ranks.run_variant(tpe.PagedRealtimeEngine(
+            tcfg, tp, device="cpu", **_engine_kw(v)), v, tcfg.vocab_size)
+        res = dict(got[v])
+        assert res.pop("kind") == "heads"
+        assert res == want, v
+        assert want["reloaded"] > 0
+        assert len(set(sum(want["histories"]["a"], []))) > 2
 
 
 # the replay: 4 sessions of the reference's interactive trace on 2

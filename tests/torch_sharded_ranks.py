@@ -87,10 +87,10 @@ def run_variant(eng, name: str, vocab: int) -> dict:
     return (drive_prefix if name == "prefix" else drive_trace)(eng, vocab)
 
 
-def _model(cfg_kw: dict, weights):
+def _model(cfg_kw: dict, weights, config: str = "qwen2-1.5b"):
     from repro_torch.configs import get_config, reduced
     from repro_torch.models.model import params_from_numpy
-    cfg = reduced(get_config("qwen2-1.5b"), **cfg_kw)
+    cfg = reduced(get_config(config), **cfg_kw)
     return cfg, params_from_numpy(weights, "cpu")
 
 
@@ -136,12 +136,13 @@ def kernels_rank(mesh, cases: dict) -> dict:
     return out
 
 
-def engines_rank(mesh, cfg_kw: dict, weights, names) -> dict:
+def engines_rank(mesh, cfg_kw: dict, weights, names,
+                 config: str = "qwen2-1.5b") -> dict:
     """Every variant of the trace on the sharded engine, one engine a
-    variant."""
+    variant, on the reduced ``config``."""
     torch.set_num_threads(1)
     from repro_torch.serving.paged_engine import PagedRealtimeEngine
-    cfg, params = _model(cfg_kw, weights)
+    cfg, params = _model(cfg_kw, weights, config)
     res = {}
     for name in names:
         res[name] = _driven(
