@@ -65,10 +65,23 @@ read just after:
   through the per-token plane's dense graft, held to the B = 1 greedy
   streams; (i2) phi3.5-moe at full width on 8 of its 32 layers (16
   experts, top-2): bf16 at the published capacity factor on both
-  planes (its streams against B = 1 logged: padding takes expert
-  capacity) and the f32 twin at capacity factor E / k, held to B = 1;
+  planes (its streams against B = 1 logged: capacity drops tie a token
+  to its batch), its fused streams unchanged when the padded query
+  slots hold zeros or random values (the moe layers route only real
+  tokens), and the f32 twin at capacity factor E / k, held to B = 1;
   (i3) the launcher's ``--engine real`` at paligemma-3b and at
   qwen3-4b (36 layers, ``qk_norm``);
+- (j) the hybrid and encdec families on the ring-cache model: (j0)
+  ``flash_prefill`` at recurrentgemma-9b's local layers (16 query heads
+  on one KV head of 256, window 2048, S 2047-3000) and whisper-tiny's
+  encoder and cross-attention (D 64, not causal, 1500 frames) against
+  its plain version, timed beside SDPA; (j1) recurrentgemma-9b whole
+  (38 layers, bf16) on the single-turn engine, prompts of 517-3000
+  tokens on a 2048-slot ring, held to B = 1 and the plain versions,
+  one prefill and one decode round profiled; (j2) whisper-tiny whole
+  through ``prefill(enc_frames=)`` and ``decode_step`` over 1500 seeded
+  frames, B 4, in bf16 and f32 (f32 held to B = 1), against the plain
+  versions;
 
 and checks what comes out. Every phase is checked; any failure exits
 non-zero. The last line of standard output is
@@ -215,7 +228,7 @@ def sdpa_yardstick(q, k_pages, v_pages, bt, starts, lens, decode: bool):
     return lambda: F.scaled_dot_product_attention(qt, k, v, attn_mask=mask)
 
 
-def flash_bound(q, k, window, q_offset):
+def flash_bound(q, k, window, q_offset, causal=True):
     """Least time (ms) for one ``flash_prefill`` call: q, k, v read and
     out written once over the memory rate, or the multiply-adds of QK^T
     and PV over the (query, key) pairs the masks leave, over the peak
@@ -223,7 +236,8 @@ def flash_bound(q, k, window, q_offset):
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     qpos = np.arange(Sq) + q_offset
-    hi = np.minimum(qpos + 1, Skv)                  # causal: keys < hi
+    # causal: keys < hi; otherwise every key
+    hi = np.minimum(qpos + 1, Skv) if causal else np.full_like(qpos, Skv)
     lo = np.zeros_like(qpos) if window is None else \
         np.maximum(qpos - window + 1, 0)
     pairs = int(np.maximum(hi - lo, 0).sum())
@@ -819,7 +833,8 @@ def single_turn_serve(cfg, params, dev, prompts, n_new, capacity) -> dict:
     out = {s.session_id: s.tokens for s in eng.slot_state.values()}
     log(f"[single] {cfg.name}: {len(prompts)} prompts of "
         f"{[len(p) for p in prompts.values()]} tokens admitted in "
-        f"{t_prefill:.2f} s; {rounds} decode rounds; {secs:.2f} s in all")
+        f"{t_prefill:.2f} s; {rounds} decode rounds in "
+        f"{secs - t_prefill:.2f} s; {secs:.2f} s in all")
     return out
 
 
@@ -846,22 +861,29 @@ def single_turn_check(cfg, params, dev, prompts, out, n_new, capacity):
         got = prefill(c, p, tok, init_cache(c, 1, capacity, dev))[0]
         want = prefill(c, p, tok, init_cache(c, 1, capacity, dev),
                        plain=True)[0]
-        torch.cuda.synchronize()
-        check(torch.isfinite(got).all().item(),
-              f"{cfg.name}: prefill logits non-finite")
-        err = (got - want).abs().max().item()
-        scale = want.abs().max().item()
-        # the kernels sum in f32 in another order than the plain
-        # versions. f32: ~1e-6 relative per layer output, carried
-        # through up to 48 layers: 1e-4 of the logits' scale. bf16: each
-        # layer's output is rounded to bf16, so those differences flip
-        # ulps (~4e-3 relative) that carry through the depth: 3e-2.
-        tol = (1e-4 if dtype == torch.float32 else 3e-2) * scale
-        agree = bool(got.argmax() == want.argmax())
-        log(f"[single] {cfg.name} {name}: {len(longest)}-token prefill, "
-            f"kernels vs plain: logits max_abs_err {err:.3e} (scale "
-            f"{scale:.2f}, tol {tol:.3e}), argmax equal {agree}")
-        check(err <= tol, f"{cfg.name} {name} prefill: {err} > {tol}")
+        logits_vs_plain(f"[single] {cfg.name} {name}: {len(longest)}-token "
+                        "prefill", got, want, dtype)
+        del p
+
+
+def logits_vs_plain(tag, got, want, dtype) -> None:
+    """A prefill's logits through the kernels against the same prefill
+    through their plain versions: finite, and within a tolerance of the
+    logits' scale. The kernels sum in f32 in another order than the
+    plain versions. f32: ~1e-6 relative per layer output, carried
+    through up to 48 layers: 1e-4 of the logits' scale. bf16: each
+    layer's output is rounded to bf16, so those differences flip ulps
+    (~4e-3 relative) that carry through the depth: 3e-2."""
+    torch.cuda.synchronize()
+    check(torch.isfinite(got).all().item(), f"{tag}: logits non-finite")
+    check(got.shape == want.shape, f"{tag}: shape {tuple(got.shape)}")
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    tol = (1e-4 if dtype == torch.float32 else 3e-2) * scale
+    agree = bool((got.argmax(-1) == want.argmax(-1)).all())
+    log(f"{tag}, kernels vs plain: logits max_abs_err {err:.3e} (scale "
+        f"{scale:.2f}, tol {tol:.3e}), argmax equal {agree}")
+    check(err <= tol, f"{tag}: {err} > {tol}")
 
 
 def prompts_for(cfg, rng, lens) -> dict:
@@ -869,12 +891,14 @@ def prompts_for(cfg, rng, lens) -> dict:
             for i, n in enumerate(lens)}
 
 
-def device_us_by_kernel(prof) -> dict:
-    """{kernel name: device µs} summed over a ``torch.profiler`` run."""
+def device_us_by_kernel(prof, ranges=()) -> dict:
+    """{kernel name: device µs} summed over a ``torch.profiler`` run; the
+    device-side spans of the ``record_function`` ``ranges`` (names) are
+    not kernels and are left out."""
     from torch.autograd import DeviceType
     by_name = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and e.name not in ranges:
             by_name[e.name] = by_name.get(e.name, 0.0) \
                 + e.time_range.elapsed_us()
     return by_name
@@ -911,49 +935,77 @@ def profile_rounds(cfg, params, dev) -> None:
             f"{name[:90]}")
 
 
-def profile_prefill(cfg, params, dev, prompt, capacity) -> None:
-    """(d) Where a full-width mamba2 prefill's time goes. One B = 1
-    prefill of ``prompt`` unprofiled, timed on the host clock when it
-    returns (the host has enqueued every launch) and when the device is
-    done; then one under ``torch.profiler``. Prints the device ms of the
-    ``ssd_scan`` kernels and their share of the prefill's device time,
-    the kernels that took the most, and the host ops that took the most
-    host time."""
-    from torch.profiler import ProfilerActivity, profile
-
+def profile_prefill(cfg, params, dev, prompt, capacity, kernels,
+                    ranges=()) -> None:
+    """(d), (j1) Where a full-width B = 1 prefill of ``prompt`` spends its
+    time (``profile_call``), after one prefill to warm up."""
     from repro_torch.models.model import init_cache, prefill
     tok = torch.as_tensor(prompt, device=dev)[None, :]
-    prefill(cfg, params, tok, init_cache(cfg, 1, capacity, dev))
-    cache = init_cache(cfg, 1, capacity, dev)
+
+    def run():
+        prefill(cfg, params, tok, init_cache(cfg, 1, capacity, dev))
+    run()
+    profile_call(f"{cfg.name} {len(prompt)}-token prefill", run, kernels,
+                 ranges)
+
+
+def profile_call(tag, run, kernels, ranges=()) -> None:
+    """``run()`` once unprofiled, timed on the host clock when it returns
+    (the host has enqueued every launch) and when the device is done;
+    then once under ``torch.profiler``. Prints the device ms and the
+    share of the device time of the kernels whose names hold each
+    ``kernels`` pattern, and of the kernels launched inside each
+    ``ranges`` function (module, name), wrapped for this run in a
+    ``record_function`` of its name; then the kernels that took the
+    most device time, and the host ops that took the most host time."""
+    from torch.profiler import ProfilerActivity, profile, record_function
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    prefill(cfg, params, tok, cache)
+    run()
     t_host = time.perf_counter() - t0
     torch.cuda.synchronize()
     t_all = time.perf_counter() - t0
-    log(f"[profile] {cfg.name} {len(prompt)}-token prefill, unprofiled: "
-        f"returned to the host after {t_host * 1e3:.2f} ms, device done "
-        f"after {t_all * 1e3:.2f} ms")
-    cache = init_cache(cfg, 1, capacity, dev)
+    log(f"[profile] {tag}, unprofiled: returned to the host after "
+        f"{t_host * 1e3:.2f} ms, device done after {t_all * 1e3:.2f} ms")
+    originals = [(mod, name, getattr(mod, name)) for mod, name in ranges]
+
+    def annotated(fn, name):
+        def call(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return call
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        prefill(cfg, params, tok, cache)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    by_name = device_us_by_kernel(prof)
+    try:
+        for mod, name, fn in originals:
+            setattr(mod, name, annotated(fn, name))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+    names = [name for _, name, _ in originals]
+    by_name = device_us_by_kernel(prof, names)
     busy = sum(by_name.values())
     if not busy:
-        log("[profile] the profiler saw no device activity: the ssd "
-            "share of a prefill not measured")
+        log(f"[profile] the profiler saw no device activity: the shares "
+            f"of the {tag} not measured")
         return
-    ssd_us = sum(us for name, us in by_name.items() if "ssd_" in name)
-    log(f"[profile] {cfg.name} {len(prompt)}-token prefill under the "
-        f"profiler: {wall_us / 1e3:.2f} ms wall; device busy "
-        f"{busy / 1e3:.2f} ms = {100 * busy / wall_us:.1f}% of wall; "
-        f"ssd_scan kernels {ssd_us / 1e3:.3f} ms = "
-        f"{100 * ssd_us / busy:.1f}% of device busy")
+    shares = {label: sum(us for name, us in by_name.items() if pat in name)
+              for label, pat in kernels.items()}
+    for name in names:
+        # the kernels of the ops inside the range (not its device span)
+        shares[f"{name} (its kernels)"] = sum(
+            ch.device_time_total for e in prof.events()
+            if e.name == name and e.cpu_children for ch in e.cpu_children)
+    log(f"[profile] {tag} under the profiler: {wall_us / 1e3:.2f} ms "
+        f"wall; device busy {busy / 1e3:.2f} ms = "
+        f"{100 * busy / wall_us:.1f}% of wall"
+        + "".join(f"; {label} {us / 1e3:.3f} ms = {100 * us / busy:.1f}% "
+                  "of device busy" for label, us in shares.items()))
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"[profile]   {us / 1e3:8.3f} ms  {100 * us / busy:5.1f}%  "
             f"{name[:90]}")
@@ -2563,6 +2615,7 @@ def phi_phase(dev, add) -> None:
     add(counts, {})
     family_counts_check("(i2) bf16", counts, cfg, planes)
     b1_agreement("(i2) phi3.5-moe bf16 cf 1.25", cfg, params, dev, planes)
+    padded_slot_fills(cfg, params, dev, planes["fused"]["tokens"])
     del moe
     free_device()
     c32 = cfg.replace(dtype="float32", param_dtype="float32",
@@ -2580,6 +2633,33 @@ def phi_phase(dev, add) -> None:
     del p32
     free_device()
     log(f"[family] phase (i2): {time.perf_counter() - t0:.1f} s")
+
+
+def padded_slot_fills(cfg, params, dev, fused_tokens) -> None:
+    """(i2) The moe layers route only a fused round's real tokens, so
+    its streams cannot depend on what the padded query slots hold: the
+    trace again with the fused kernel's output there overwritten by
+    zeros, then by seeded N(0, 1) values, gives the same streams bit for
+    bit."""
+    import repro_torch.serving.paged_engine as pe
+    kernel = pe.paged_prefill_attention
+    g = torch.Generator(device=dev).manual_seed(SEED + 50)
+    for fill in ("zeros", "random values"):
+        def attend(q, *args, **kw):
+            out = kernel(q, *args, **kw)
+            pad = torch.arange(q.shape[1], device=dev) >= args[-1][:, None]
+            val = torch.zeros_like(out) if fill == "zeros" else \
+                torch.randn(out.shape, generator=g, device=dev).to(out.dtype)
+            return torch.where(pad[..., None, None], val, out)
+        pe.paged_prefill_attention = attend
+        try:
+            got = family_trace(cfg, params, dev, True)["tokens"]
+        finally:
+            pe.paged_prefill_attention = kernel
+        log(f"[family] (i2) padded query slots overwritten by {fill}: "
+            f"fused streams bit for bit unchanged {got == fused_tokens}")
+        check(got == fused_tokens, f"(i2) the fused streams depend on the "
+              f"padded query slots ({fill})")
 
 
 def launcher_family_phase() -> None:
@@ -2612,20 +2692,248 @@ def launcher_family_phase() -> None:
               f"{pre}, {gen}")
 
 
-def cast_params(tree, dtype, key=None):
+# ======================================================================
+# (j) the hybrid and encdec families on the ring-cache model
+# ======================================================================
+FAMILY_FLASH_CASES = [  # tag, B, Hq, Hkv, Sq, Skv, D, options
+    # recurrentgemma-9b's local layers: MQA at G 16, D 256, a 2048 window
+    *((f"recurrentgemma local S={S}", 1, 16, 1, S, S, 256,
+       dict(window=2048)) for S in (2047, 2048, 2049, 3000)),
+    # whisper-tiny's encoder over 1500 frames and its cross-attention
+    ("whisper encoder", 1, 6, 6, 1500, 1500, 64, dict(causal=False)),
+    ("whisper cross-attention", 1, 6, 6, 448, 1500, 64,
+     dict(causal=False)),
+]
+
+
+def sdpa_backend(q, k, v, mask) -> str:
+    """The SDPA backend PyTorch's dispatcher picks for this call."""
+    from torch.nn.attention import SDPBackend
+    try:
+        return SDPBackend(int(torch._fused_sdp_choice(
+            q, k, v, attn_mask=mask, enable_gqa=True))).name
+    except (AttributeError, TypeError, RuntimeError, ValueError) as e:
+        return f"not determined ({type(e).__name__})"
+
+
+def family_flash_phase(dev) -> None:
+    """(j0) ``flash_prefill`` at the hybrid's and the encdec family's
+    shapes in both types against its plain version (bf16 also against
+    the f32 plain version on the same inputs); each bf16 case timed
+    beside its plain version, SDPA (an explicit boolean mask at the
+    window; the backend the dispatcher picks is logged) and its bound.
+    Logged rows: the kernels' line keeps the qwen2-1.5b shapes."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    F = torch.nn.functional
+    g = torch.Generator(device=dev).manual_seed(SEED + 30)
+    timer = Timer(dev)
+    for tag, B, Hq, Hkv, Sq, Skv, D, kw in FAMILY_FLASH_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype)[6:]
+            q = torch.randn(B, Hq, Sq, D, generator=g, device=dev).to(dtype)
+            k, v = (torch.randn(B, Hkv, Skv, D, generator=g, device=dev)
+                    .to(dtype) for _ in range(2))
+            got = flash_prefill(q, k, v, **kw)
+            err, ok = allclose_err(got, ref.flash_prefill_ref(q, k, v, **kw),
+                                   TOL[dtype])
+            if dtype == torch.bfloat16:
+                e32, ok32 = allclose_err(got, ref.flash_prefill_ref(
+                    q.float(), k.float(), v.float(), **kw), TOL[dtype])
+                err, ok = max(err, e32), ok and ok32
+            torch.cuda.synchronize()
+            log(f"[family] (j0) {name} flash_prefill {tag} (B={B} Hq={Hq} "
+                f"Hkv={Hkv} Sq={Sq} Skv={Skv} D={D} {kw}): max_abs_err "
+                f"{err} (tol {TOL[dtype]})")
+            check(torch.isfinite(got).all().item() and ok,
+                  f"(j0) flash_prefill {name} {tag}: {err}")
+            if dtype != torch.bfloat16:
+                continue
+            causal = kw.get("causal", True)
+            window = kw.get("window")
+            mask = None
+            if window is not None:
+                qp = torch.arange(Sq, device=dev)[:, None]
+                kp = torch.arange(Skv, device=dev)[None, :]
+                mask = (kp <= qp) & (qp - kp < window)
+            ms = timer(lambda: flash_prefill(q, k, v, **kw))
+            plain_ms = timer(lambda: ref.flash_prefill_ref(q, k, v, **kw))
+            lib_ms = timer(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True))
+            bound_ms, bound_by = flash_bound(q, k, window, 0, causal)
+            log(f"[family] (j0) flash_prefill bf16 {tag}: {ms:.4f} ms "
+                f"(plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms on "
+                f"{sdpa_backend(q, k, v, mask)}, bound {bound_ms:.5f} ms "
+                f"by {bound_by})")
+
+
+def hybrid_phase(dev, add) -> None:
+    """(j1) recurrentgemma-9b whole (38 layers: 26 rglru, 12 local
+    attention with a 2048 window, d 4096, MQA, head dim 256, bf16) on
+    the single-turn engine: 4 slots, capacity 4096 (a ring of W =
+    2048), prompts of 3000, 2049, 1397 and 517 tokens, 32 new tokens
+    each, held to the B = 1 greedy streams; the longest prefill's logits
+    against the plain versions' in bf16 and f32; one 3000-token prefill
+    profiled for the shares of ``flash_prefill`` and of the scan, and
+    one decode round of the four slots; the scan timed alone."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import rglru
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.engine import RealtimeLLMEngine
+    free_device()
+    t0 = time.perf_counter()
+    cfg = get_config("recurrentgemma-9b")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    kinds = cfg.block_kinds()
+    n_att = kinds.count("local_attn")
+    rec = params["layers"][0]["rec"]
+    check(cfg.num_layers == 38 and cfg.d_model == 4096
+          and cfg.resolved_head_dim == 256 and cfg.num_kv_heads == 1
+          and cfg.rglru.local_window == 2048 and n_att == 12
+          and len(params["layers"]) == 38
+          and params["embed"].shape == (256000, 4096)
+          and params["embed"].dtype == torch.bfloat16
+          and rec["w_a"].shape == (16, 256, 256)
+          and rec["w_a"].dtype == torch.float32,
+          "not full-width recurrentgemma-9b in bf16")
+    log(f"[hybrid] {cfg.name}: {cfg.num_layers} layers ({n_att} local "
+        f"attention, window {cfg.rglru.local_window}) d={cfg.d_model} "
+        f"heads {cfg.num_heads}/{cfg.num_kv_heads} hd "
+        f"{cfg.resolved_head_dim}, {n / 1e9:.3f} B parameters in bf16 "
+        f"(the registry counts {cfg.num_params() / 1e9:.2f} B), random "
+        f"weights (seed {SEED}) in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    rng = np.random.default_rng(SEED + 31)
+    prompts = prompts_for(cfg, rng, [3000, 2049, 1397, 517])
+    out, counts = main_path("(j1) recurrentgemma-9b single-turn",
+                            single_turn_serve, cfg, params, dev, prompts,
+                            32, 4096)
+    add(counts, {"flash_prefill": len(prompts) * n_att})
+    single_turn_check(cfg, params, dev, prompts, out, 32, 4096)
+    free_device()
+    profile_prefill(cfg, params, dev, prompts["s0"], 4096,
+                    {"flash_prefill": "flash_prefill"},
+                    [(rglru, "rglru_scan")])
+    # a decode round of the four slots: rounds 3 and 4 of the engine
+    eng = RealtimeLLMEngine(cfg, params, slots=len(prompts),
+                            capacity=4096, device=dev)
+    for sid, p in prompts.items():
+        eng.add_session(sid, p, max_new_tokens=8)
+    eng.step()
+    eng.step()
+    profile_call(f"{cfg.name} decode round ({len(prompts)} slots)",
+                 eng.step, {"flash_prefill": "flash_prefill"},
+                 [(rglru, "rglru_step")])
+    del eng
+    # the scan alone at the 3000-token prefill's shape, for its share
+    w = cfg.rglru.lru_width
+    x = torch.randn(1, 3000, w, device=dev).to(torch.bfloat16)
+    scan_ms = Timer(dev)(lambda: rglru.rglru_scan(rec, x))
+    log(f"[hybrid] rglru_scan alone, [1, 3000, {w}]: {scan_ms:.4f} ms a "
+        f"call, x {kinds.count('rglru')} layers = "
+        f"{scan_ms * kinds.count('rglru'):.2f} ms a prefill")
+    del params, rec, x
+    free_device()
+    log(f"[hybrid] phase (j1): {time.perf_counter() - t0:.1f} s")
+
+
+def whisper_streams(cfg, params, dev, tokens, seq_lens, frames, n):
+    """``prefill(enc_frames=)`` then ``n - 1`` greedy ``decode_step``s.
+    Returns (the prefill's logits, the streams [B, n] as lists)."""
+    from repro_torch.models.model import decode_step, init_cache, prefill
+    cache = init_cache(cfg, tokens.shape[0], 512, dev,
+                       enc_frames=frames.shape[1])
+    first, cache = prefill(cfg, params, tokens, cache, seq_lens=seq_lens,
+                           enc_frames=frames)
+    out = [first.argmax(-1)]
+    for _ in range(n - 1):
+        lg, cache = decode_step(cfg, params, out[-1], cache)
+        check(torch.isfinite(lg).all().item(), "(j2) decode logits")
+        out.append(lg.argmax(-1))
+    return first, torch.stack(out, 1).tolist()
+
+
+def whisper_phase(dev, add) -> None:
+    """(j2) whisper-tiny whole (4 encoder and 4 decoder layers, d 384,
+    6 heads of 64, vocab 51865) through ``prefill(enc_frames=)`` and
+    ``decode_step``: 1500 seeded frame embeddings (the stub frontend's
+    form), B 4 with prompts of 448, 301, 97 and 16 tokens, 32 greedy
+    steps, in bf16 and in its f32 twin. The prefill's logits against
+    the plain versions'; the f32 streams held to each row's B = 1
+    stream (the bf16 ones logged: the batched prefill's products round
+    at other shapes)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params, prefill, init_cache
+    t0 = time.perf_counter()
+    cfg = get_config("whisper-tiny")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+    n = sum(t.numel() for t in _leaves(params))
+    check(cfg.num_layers == 4 and cfg.encoder.num_layers == 4
+          and cfg.d_model == 384 and cfg.resolved_head_dim == 64
+          and cfg.encoder.num_frames == 1500
+          and params["layers"]["xattn"]["wk"].shape == (4, 384, 6, 64)
+          and params["embed"].shape == (51865, 384),
+          "not full-width whisper-tiny")
+    log(f"[encdec] {cfg.name}: {cfg.num_layers}+{cfg.encoder.num_layers} "
+        f"layers d={cfg.d_model} heads {cfg.num_heads} hd "
+        f"{cfg.resolved_head_dim}, {n / 1e6:.1f} M parameters, random "
+        f"weights (seed {SEED})")
+    g = torch.Generator(device=dev).manual_seed(SEED + 40)
+    F = cfg.encoder.num_frames
+    frames = torch.randn(4, F, cfg.d_model, generator=g, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 448), generator=g,
+                           device=dev)
+    lens = [448, 301, 97, 16]
+    seq_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    c32, p32 = f32_twin(cfg, params)
+    for c, p in ((cfg, params), (c32, p32)):
+        name = str(c.activation_dtype())[6:]
+        (first, streams), counts = main_path(
+            f"(j2) whisper-tiny {name}", whisper_streams, c, p, dev,
+            tokens, seq_lens, frames, 32)
+        # a prefill: the encoder's, the decoder's self- and
+        # cross-attention layers, once each
+        add(counts, {"flash_prefill": 2 * cfg.num_layers
+                     + cfg.encoder.num_layers})
+        want = prefill(c, p, tokens, init_cache(c, 4, 512, dev,
+                                                enc_frames=F),
+                       seq_lens=seq_lens, enc_frames=frames, plain=True)[0]
+        logits_vs_plain(f"[encdec] (j2) {name} prefill", first, want,
+                        c.activation_dtype())
+        same = [streams[b] == whisper_streams(
+            c, p, dev, tokens[b:b + 1, :lens[b]], None, frames[b:b + 1],
+            32)[1][0] for b in range(4)]
+        log(f"[encdec] (j2) {name}: rows of {lens} tokens over {F} "
+            f"frames, 32 steps; streams equal to B = 1 {sum(same)}/4; "
+            f"first tokens {[r[:6] for r in streams]}")
+        if c is c32:
+            check(all(same), f"(j2) f32 streams differ from B = 1: {same}")
+    del params, p32
+    free_device()
+    log(f"[encdec] phase (j2): {time.perf_counter() - t0:.1f} s")
+
+
+def cast_params(tree, dtype, parent=None, key=None):
     """Every leaf to ``dtype`` (no copy where it already is), except the
-    mixer's leaves that stay f32 at any type."""
-    from repro_torch.models.model import F32_LEAVES
+    leaves that stay f32 at any type (the mixer's, the router, the
+    RG-LRU's gates and decay)."""
+    from repro_torch.models.model import keeps_f32
     if isinstance(tree, dict):
-        return {k: cast_params(v, dtype, k) for k, v in tree.items()}
+        return {k: cast_params(v, dtype, key, k) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [cast_params(v, dtype) for v in tree]
-    return tree if key in F32_LEAVES else tree.to(dtype)
+        return [cast_params(v, dtype, parent, key) for v in tree]
+    return tree if keeps_f32(parent, key) else tree.to(dtype)
 
 
 def _leaves(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _leaves(v)]
     return [tree]
 
 
@@ -2779,7 +3087,8 @@ def main() -> int:
                             32, 4096)
     add(counts, {"ssd_scan": len(prompts) * mcfg.num_layers})
     single_turn_check(mcfg, mparams, dev, prompts, out, 32, 4096)
-    profile_prefill(mcfg, mparams, dev, prompts["s0"], 4096)
+    profile_prefill(mcfg, mparams, dev, prompts["s0"], 4096,
+                    {"ssd_scan kernels": "ssd_"})
     del mparams
     free_device()
     # (i) the moe and vlm families: the kernels at head dim 256, then
@@ -2790,6 +3099,13 @@ def main() -> int:
     phi_phase(dev, add)
     launcher_family_phase()
     log(f"[family] phase (i): {time.perf_counter() - t_i:.1f} s")
+    # (j) the hybrid and encdec families: the kernel at their shapes,
+    # then each model's path with its own counts
+    t_j = time.perf_counter()
+    family_flash_phase(dev)
+    hybrid_phase(dev, add)
+    whisper_phase(dev, add)
+    log(f"[family] phase (j): {time.perf_counter() - t_j:.1f} s")
     for name, n in total.items():
         check(n > 0, f"{name} never launched on a main path")
         rows[name]["launches"] = n

@@ -60,6 +60,16 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(length: int, d_model: int, device):
+    """The encoder's fixed positions [length, d_model] f32: sines of
+    ``pos / 10000^(2i / d)`` then their cosines."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d_model, 2, dtype=torch.float32,
+                       device=device)[None, :]
+    angle = pos / torch.pow(10000.0, dim / d_model)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
+
+
 # ----------------------------------------------------------------- attention
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -137,10 +147,13 @@ def mlp_init(generator, d_model: int, d_ff: int, kind: str, dtype, device):
 
 
 # ----------------------------------------------------------------- attn block
-def attn_init(generator, cfg, dtype, device):
-    d = cfg.d_model
+def attn_init(generator, cfg, dtype, device, *, d_model=None, mha=False):
+    """``mha``: as many KV heads as query heads (whisper's
+    cross-attention)."""
+    d = d_model or cfg.d_model
     hd = cfg.resolved_head_dim
-    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    hq = cfg.num_heads
+    hkv = hq if mha else cfg.num_kv_heads
     p = {
         "wq": dense_init(generator, (d, hq, hd), d, dtype, device),
         "wk": dense_init(generator, (d, hkv, hd), d, dtype, device),
@@ -159,9 +172,10 @@ def attn_init(generator, cfg, dtype, device):
     return p
 
 
-def attn_project_qkv(params, cfg, x, positions):
-    """Project, add the bias, norm, then rope. Returns q [B,S,Hq,D],
-    k/v [B,S,Hkv,D]."""
+def attn_project_qkv(params, cfg, x, positions, *, rope=True):
+    """Project, add the bias, norm, then rope (unless ``rope`` is False:
+    the encoder's positions are added to its input). Returns q
+    [B,S,Hq,D], k/v [B,S,Hkv,D]."""
     q = torch.einsum("bsd,dhe->bshe", x, params["wq"])
     k = torch.einsum("bsd,dhe->bshe", x, params["wk"])
     v = torch.einsum("bsd,dhe->bshe", x, params["wv"])
@@ -170,8 +184,9 @@ def attn_project_qkv(params, cfg, x, positions):
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.rms_eps)
         k = rms_norm(k, params["k_norm"], cfg.rms_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 

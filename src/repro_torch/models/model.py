@@ -1,25 +1,33 @@
 """Model assembly: parameters, embedding, unembedding, the MLP block
-(dense or moe), and the ring-cache ``prefill``/``decode_step`` of the
-dense, moe, vlm and ssm families (those branches of the JAX package's
-``models/model.py``). The vlm family runs its text path: the stub
-modality frontend (``frontend_embeds`` and the prefix-LM mask) is not
-ported.
+(dense or moe), the whisper encoder, and the ring-cache
+``prefill``/``decode_step`` of every family but mla (those branches of
+the JAX package's ``models/model.py``): dense, moe, vlm, ssm, hybrid
+(RecurrentGemma's rglru/local-attention pattern) and encdec (whisper's
+decoder over an encoder's output). The vlm family runs its text path:
+the stub modality frontend (``frontend_embeds`` and the prefix-LM mask)
+is not ported.
 
 Parameters are a dict of tensors in the JAX package's pytree layout:
-``embed``, ``final_norm``, optional ``unembed``, layer-stacked
-``layers`` (every leaf has a leading ``[num_layers]`` axis) and an
+``embed``, ``final_norm``, optional ``unembed``, ``layers`` and an
 optional ``layers_pre`` list (the moe family's leading dense layers).
-The reference scans the stacked layers; the port loops over them
+``layers`` is layer-stacked (every leaf has a leading ``[num_layers]``
+axis), except in the hybrid family, whose mixed layer kinds make it a
+list; the encdec family adds ``encoder`` (stacked layers and a final
+norm). The reference scans the stacked layers; the port loops over them
 (``layer_params``).
 
 KV caches are ring buffers of ``W`` slots (W = capacity, or the
-attention window for sliding-window configs); ``kv_pos`` tracks
-absolute positions so masks stay exact after wraparound. The reference
-builds a new cache functionally; the port writes the cache it is given
-in place and returns it. The dense prefill attends through the
-``flash_prefill`` kernel, the ssm prefill scans through ``ssd_scan``;
-the ring-cache decode attends with the plain ``gqa_attention`` over the
-W slots, as the reference does outside any Pallas kernel.
+attention window for sliding-window and local-attention configs);
+``kv_pos`` tracks absolute positions so masks stay exact after
+wraparound. The hybrid cache holds K/V for its local-attention layers
+only, beside each recurrent layer's f32 state and conv tail; the encdec
+cache holds each layer's cross-attention K/V over the encoder frames.
+The reference builds a new cache functionally; the port writes the
+cache it is given in place and returns it. Prefill attends through the
+``flash_prefill`` kernel (causal, with the window where there is one;
+not causal over the encoder frames) and the ssm prefill scans through
+``ssd_scan``; the ring-cache decode attends with the plain
+``gqa_attention``, as the reference does outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -30,11 +38,19 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.flash_prefill import flash_prefill
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rg
 from repro_torch.models import ssm as ssm_mod
 
-# the leaves the reference keeps in f32 at any param_dtype: the mixer's
-# and the moe router
-F32_LEAVES = ("A_log", "D", "dt_bias", "router")
+# the leaves the reference keeps in f32 at any param_dtype: the mixer's,
+# the moe router and the RG-LRU's gates and decay. "parent/name" is f32
+# only under that parent: the mixer's own ``w_x`` takes the param dtype
+F32_LEAVES = ("A_log", "D", "dt_bias", "router", "rec/w_a", "rec/b_a",
+              "rec/w_x", "rec/b_x", "rec/lam")
+
+
+def keeps_f32(parent, key) -> bool:
+    """Whether leaf ``key`` of the dict under ``parent`` stays f32."""
+    return key in F32_LEAVES or f"{parent}/{key}" in F32_LEAVES
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -43,10 +59,8 @@ def _not_ported(what: str) -> NotImplementedError:
 
 
 def _check_ported(cfg) -> None:
-    """The ring-cache model serves the dense, moe, vlm and ssm
-    families."""
-    if cfg.family not in ("dense", "moe", "vlm", "ssm"):
-        raise _not_ported(f"the {cfg.family} family")
+    """The ring-cache model serves every family; mla attention and the
+    dry run's surrogate attention are not ported."""
     if cfg.mla is not None:
         raise _not_ported("mla attention")
     if cfg.attention_impl != "einsum":
@@ -80,12 +94,31 @@ def _ssm_layer_init(generator, cfg, dtype, device):
             "mixer": ssm_mod.mamba2_init(generator, cfg, dtype, device)}
 
 
+def _rglru_layer_init(generator, cfg, dtype, device):
+    r = cfg.rglru
+    zeros = torch.zeros((cfg.d_model,), dtype=dtype, device=device)
+    return {"ln1": zeros,
+            "rec": rg.rglru_init(generator, cfg.d_model,
+                                 r.lru_width or cfg.d_model, r.conv_width,
+                                 dtype, device),
+            "ln2": zeros.clone(),
+            "mlp": L.mlp_init(generator, cfg.d_model, cfg.d_ff,
+                              cfg.mlp_kind, dtype, device)}
+
+
+def _xattn_layer_init(generator, cfg, dtype, device):
+    """A whisper decoder layer: self-attention, cross-attention, mlp."""
+    p = _dense_layer_init(generator, cfg, dtype, device)
+    p["ln_x"] = torch.zeros((cfg.d_model,), dtype=dtype, device=device)
+    p["xattn"] = L.attn_init(generator, cfg, dtype, device, mha=True)
+    return p
+
+
 def init_params(cfg, generator: torch.Generator, device):
-    """Random weights for the dense, moe, vlm and ssm families, drawn
-    from ``generator`` (which must live on ``device``) with the
-    reference's schemes. The numbers differ from JAX's for the same
-    seed; tests carry JAX's weights across with ``params_from_numpy``
-    instead."""
+    """Random weights for every family but mla, drawn from ``generator``
+    (which must live on ``device``) with the reference's schemes. The
+    numbers differ from JAX's for the same seed; tests carry JAX's
+    weights across with ``params_from_numpy`` instead."""
     _check_ported(cfg)
     dtype = getattr(torch, cfg.param_dtype)
     params = {
@@ -111,6 +144,24 @@ def init_params(cfg, generator: torch.Generator, device):
             _dense_layer_init(generator, cfg, dtype, device, moe_layer=True)
             for _ in range(n - nd)])
         return params
+    if cfg.family == "hybrid":
+        params["layers"] = [
+            (_rglru_layer_init if kind == "rglru" else _dense_layer_init)(
+                generator, cfg, dtype, device)
+            for kind in cfg.block_kinds()]
+        return params
+    if cfg.family == "encdec":
+        enc = cfg.encoder
+        params["layers"] = _stack([
+            _xattn_layer_init(generator, cfg, dtype, device)
+            for _ in range(n)])
+        params["encoder"] = {
+            "layers": _stack([_dense_layer_init(generator, cfg, dtype,
+                                                device)
+                              for _ in range(enc.num_layers)]),
+            "final_norm": torch.zeros((enc.d_model or cfg.d_model,),
+                                      dtype=dtype, device=device)}
+        return params
     layer = _ssm_layer_init if cfg.family == "ssm" else _dense_layer_init
     params["layers"] = _stack([layer(generator, cfg, dtype, device)
                                for _ in range(n)])
@@ -129,27 +180,30 @@ def _to_tensor(a, device, dtype):
     return t.to(device)
 
 
-def params_from_numpy(tree, device, dtype=None):
+def params_from_numpy(tree, device, dtype=None, _parent=None):
     """The JAX package's parameter pytree, as nested dicts (and the
-    ``layers_pre`` list) of numpy arrays, to the same tree of tensors on
-    ``device``. Floating leaves are cast to ``dtype`` when given, except
-    the ``F32_LEAVES`` (the mixer's and the moe router), which stay f32
-    as in the reference."""
+    ``layers_pre`` and hybrid ``layers`` lists) of numpy arrays, to the
+    same tree of tensors on ``device``. Floating leaves are cast to
+    ``dtype`` when given, except the ``F32_LEAVES``, which stay f32 as
+    in the reference."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device, torch.float32
                                      if dtype is not None
-                                     and k in F32_LEAVES else dtype)
+                                     and keeps_f32(_parent, k) else dtype,
+                                     k)
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [params_from_numpy(v, device, dtype) for v in tree]
+        return [params_from_numpy(v, device, dtype, _parent) for v in tree]
     return _to_tensor(tree, device, dtype)
 
 
 def layer_params(params):
     """Per-layer parameter dicts in execution order: the unstacked
-    ``layers_pre`` first, then views into each slice of the stacked
-    ``layers``."""
+    ``layers_pre`` first, then the hybrid list as it is, or views into
+    each slice of the stacked ``layers``."""
     stacked = params["layers"]
+    if isinstance(stacked, list):
+        return list(params.get("layers_pre", [])) + stacked
     return list(params.get("layers_pre", [])) + [
         _index(stacked, i) for i in range(stacked["ln1"].shape[0])]
 
@@ -179,27 +233,69 @@ def _logits(cfg, params, x):
     return logits
 
 
-def _mlp_block(cfg, lp, x):
+def _mlp_block(cfg, lp, x, valid=None):
     """The MLP half of a layer: dense, or the single-device moe (its aux
-    loss, a training term, is dropped)."""
+    loss, a training term, is dropped), which routes only the tokens
+    ``valid`` [B, S] marks (None: all)."""
     h = L.rms_norm(x, lp["ln2"], cfg.rms_eps)
     if "moe" in lp:
-        return x + moe_mod.moe_apply(lp["moe"], h, cfg)[0]
+        return x + moe_mod.moe_apply(lp["moe"], h, cfg, valid=valid)[0]
     return x + L.mlp_apply(lp["mlp"], h, cfg.mlp_kind)
+
+
+def _cross_attention(lp, cfg, x, k, v, attend):
+    """A decoder layer's cross-attention half: queries from ``x``
+    (normed, no rope) over the encoder's k/v [B, F, H, hd]."""
+    g = L.rms_norm(x, lp["ln_x"], cfg.rms_eps)
+    q = torch.einsum("bsd,dhe->bshe", g, lp["xattn"]["wq"])
+    return x + L.attn_output(lp["xattn"], attend(q, k, v))
+
+
+def _flash(attend, q, k, v, **kw):
+    """``flash_prefill`` (or its plain version) on [B, S, H, D] tensors."""
+    return attend(q.transpose(1, 2).contiguous(),
+                  k.transpose(1, 2).contiguous(),
+                  v.transpose(1, 2).contiguous(), **kw).transpose(1, 2)
+
+
+def encode(cfg, params, frames, *, plain: bool = False):
+    """The whisper encoder over stub frame embeddings [B, F, d]: the
+    sinusoidal positions added, then non-causal self-attention layers
+    through ``flash_prefill`` (``plain``: its plain version)."""
+    enc = params["encoder"]
+    B, F, d = frames.shape
+    dt = cfg.activation_dtype()
+    x = frames.to(dt) + L.sinusoidal_positions(F, d, frames.device).to(dt)
+    positions = torch.arange(F, dtype=torch.int32,
+                             device=x.device).expand(B, F)
+    attend = ref.flash_prefill_ref if plain else flash_prefill
+    for lp in layer_params(enc):
+        h = L.rms_norm(x, lp["ln1"], cfg.rms_eps)
+        q, k, v = L.attn_project_qkv(lp["attn"], cfg, h, positions,
+                                     rope=False)
+        x = x + L.attn_output(lp["attn"],
+                              _flash(attend, q, k, v, causal=False))
+        x = _mlp_block(cfg, lp, x)
+    return L.rms_norm(x, enc["final_norm"], cfg.rms_eps)
 
 
 # ======================================================================
 # ring KV cache
 # ======================================================================
 def cache_window(cfg, capacity: int) -> int:
+    if cfg.family == "hybrid":
+        return min(capacity, cfg.rglru.local_window)
     if cfg.sliding_window is not None:
         return min(capacity, cfg.sliding_window)
     return capacity
 
 
-def init_cache(cfg, batch: int, capacity: int, device):
-    """An empty decode cache on ``device``: ring buffers of W slots
-    (dense) or the conv caches and f32 SSM state (ssm)."""
+def init_cache(cfg, batch: int, capacity: int, device, *,
+               enc_frames: int = 0):
+    """An empty decode cache on ``device``: ring buffers of W slots for
+    the attention layers, the conv caches and f32 state of the ssm and
+    rglru layers, and (encdec) the cross-attention K/V over
+    ``enc_frames`` encoder frames."""
     _check_ported(cfg)
     dtype = cfg.activation_dtype()
     cache = {"len": torch.zeros((batch,), dtype=torch.int32, device=device)}
@@ -215,12 +311,28 @@ def init_cache(cfg, batch: int, capacity: int, device):
                                          dtype=torch.float32, device=device)
         return cache
     W = cache_window(cfg, capacity)
-    shape = (cfg.num_layers, batch, W, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
+    hd = cfg.resolved_head_dim
+    n_att = cfg.num_layers
+    if cfg.family == "hybrid":
+        kinds = cfg.block_kinds()
+        n_att = kinds.count("local_attn")
+        w = cfg.rglru.lru_width or cfg.d_model
+        n_rec = kinds.count("rglru")
+        cache["rec_h"] = torch.zeros((n_rec, batch, w), dtype=torch.float32,
+                                     device=device)
+        cache["rec_conv"] = torch.zeros(
+            (n_rec, batch, cfg.rglru.conv_width - 1, w), dtype=dtype,
+            device=device)
+    shape = (n_att, batch, W, cfg.num_kv_heads, hd)
     cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
     cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
     cache["kv_pos"] = torch.full((batch, W), -1, dtype=torch.int32,
                                  device=device)
+    if cfg.family == "encdec":
+        cache["cross_k"] = torch.zeros(
+            (cfg.num_layers, batch, enc_frames, cfg.num_heads, hd),
+            dtype=dtype, device=device)
+        cache["cross_v"] = torch.zeros_like(cache["cross_k"])
     return cache
 
 
@@ -243,29 +355,43 @@ def _decode_mask(cfg, q_pos, kv_pos, window):
 # prefill
 # ======================================================================
 def prefill(cfg, params, tokens, cache, *, seq_lens=None, prefix_len=None,
-            frontend_embeds=None, plain: bool = False):
+            frontend_embeds=None, enc_frames=None, plain: bool = False):
     """Run the full prompt, fill the cache. Returns (last_logits [B, V],
     cache).
 
     Supports S > W (the ring keeps the last W positions). ``seq_lens``
     marks the true per-row prompt length (padded rows produce masked
-    cache slots). The dense attention is ``flash_prefill`` with the
-    causal (and window) mask: for every valid row this is the
-    reference's masked ``gqa_attention`` exactly, since causality
-    already hides every key past ``seq_lens``. ``plain`` (tests and the
-    chip check only) runs the kernels' plain versions on any device, to
-    hold the kernels' prefill against it; it is never a fallback."""
+    cache slots, and the moe layers route only the valid tokens).
+    The attention is ``flash_prefill`` with the causal (and window)
+    mask: for every valid row this is the reference's masked
+    ``gqa_attention`` exactly, since causality already hides every key
+    past ``seq_lens``. The encdec family needs ``enc_frames`` [B, F, d]:
+    the encoder runs first, and every decoder layer attends over its
+    output without a mask. The hybrid family's recurrence runs over a
+    padded row's padding, as the reference's does (the engine prefills
+    one row); past a local-attention layer the padding's activations
+    are not the reference's (no key past a row's length is masked), so
+    neither is such a row's state. ``plain`` (tests and the chip check
+    only) runs the kernels' plain versions on any device, to hold the
+    kernels' prefill against it; it is never a fallback."""
     if prefix_len is not None:
         raise _not_ported("prefix_len (the prefix-LM mask)")
     if frontend_embeds is not None:
         raise _not_ported("frontend_embeds (the stub modality frontend)")
+    if (cfg.family == "encdec") != (enc_frames is not None):
+        raise ValueError("enc_frames is required for the encdec family, "
+                         "and only for it")
     x = _embed(cfg, params, tokens)
     B, S, _ = x.shape
     dev = x.device
-    if seq_lens is None:
+    full = seq_lens is None
+    if full:
         seq_lens = torch.full((B,), S, dtype=torch.int32, device=dev)
     positions = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
     valid = positions < seq_lens[:, None]
+    # the moe layers route only the valid tokens; a full batch needs no
+    # mask (and so no host sync)
+    mlp_valid = None if full else valid
 
     if cfg.family == "ssm":
         for i, lp in enumerate(layer_params(params)):
@@ -292,17 +418,38 @@ def prefill(cfg, params, tokens, cache, *, seq_lens=None, prefix_len=None,
                 _ring_write(buf, slots, new)
 
         attend = ref.flash_prefill_ref if plain else flash_prefill
-        for i, lp in enumerate(layer_params(params)):
+        window = cfg.rglru.local_window if cfg.family == "hybrid" \
+            else cfg.sliding_window
+        if enc_frames is not None:
+            enc_out = encode(cfg, params, enc_frames, plain=plain)
+        ai = ri = 0
+        for i, (lp, kind) in enumerate(zip(layer_params(params),
+                                           cfg.block_kinds())):
             h = L.rms_norm(x, lp["ln1"], cfg.rms_eps)
-            q, k, v = L.attn_project_qkv(lp["attn"], cfg, h, positions)
-            a = attend(q.transpose(1, 2).contiguous(),
-                       k.transpose(1, 2).contiguous(),
-                       v.transpose(1, 2).contiguous(), causal=True,
-                       window=cfg.sliding_window)
-            x = x + L.attn_output(lp["attn"], a.transpose(1, 2))
-            write(cache["k"][i], k)
-            write(cache["v"][i], v)
-            x = _mlp_block(cfg, lp, x)
+            if kind == "rglru":
+                y, (cc, hl) = rg.recurrent_block_forward(lp["rec"], cfg, h)
+                cache["rec_conv"][ri] = cc
+                cache["rec_h"][ri] = hl
+                x = x + y
+                ri += 1
+            else:
+                q, k, v = L.attn_project_qkv(lp["attn"], cfg, h, positions)
+                a = _flash(attend, q, k, v, causal=True, window=window)
+                x = x + L.attn_output(lp["attn"], a)
+                write(cache["k"][ai], k)
+                write(cache["v"][ai], v)
+                ai += 1
+            if "xattn" in lp:
+                kx = torch.einsum("bsd,dhe->bshe", enc_out,
+                                  lp["xattn"]["wk"])
+                vx = torch.einsum("bsd,dhe->bshe", enc_out,
+                                  lp["xattn"]["wv"])
+                x = _cross_attention(
+                    lp, cfg, x, kx, vx,
+                    lambda q, k, v: _flash(attend, q, k, v, causal=False))
+                cache["cross_k"][i] = kx
+                cache["cross_v"][i] = vx
+            x = _mlp_block(cfg, lp, x, mlp_valid)
         kv_pos = torch.where(in_ring, positions, -1)
         if W == S:
             cache["kv_pos"].copy_(kv_pos)
@@ -320,12 +467,16 @@ def prefill(cfg, params, tokens, cache, *, seq_lens=None, prefix_len=None,
 # ======================================================================
 # decode
 # ======================================================================
-def decode_step(cfg, params, tokens, cache):
+def decode_step(cfg, params, tokens, cache, valid=None):
     """tokens [B] -> (logits [B, V], cache). One AR step per sequence;
-    the cache is written in place."""
+    the cache is written in place. ``valid`` [B] bool marks the rows
+    whose tokens the moe layers route (None: all); the others still
+    step."""
     B = tokens.shape[0]
     x = _embed(cfg, params, tokens[:, None])
     q_pos = cache["len"][:, None]                       # [B, 1]
+    if valid is not None:
+        valid = valid[:, None]
 
     if cfg.family == "ssm":
         for i, lp in enumerate(layer_params(params)):
@@ -343,15 +494,36 @@ def decode_step(cfg, params, tokens, cache):
         slots = (q_pos % W).long()                      # [B, 1], < W
         rows = torch.arange(B, device=x.device)[:, None]
         cache["kv_pos"][rows, slots] = q_pos
-        mask = _decode_mask(cfg, q_pos, cache["kv_pos"], cfg.sliding_window)
-        for i, lp in enumerate(layer_params(params)):
+        window = cfg.rglru.local_window if cfg.family == "hybrid" \
+            else cfg.sliding_window
+        mask = _decode_mask(cfg, q_pos, cache["kv_pos"], window)
+        if cfg.family == "encdec":
+            xmask = torch.ones((B, 1, cache["cross_k"].shape[2]),
+                               dtype=torch.bool, device=x.device)
+        ai = ri = 0
+        for i, (lp, kind) in enumerate(zip(layer_params(params),
+                                           cfg.block_kinds())):
             h = L.rms_norm(x, lp["ln1"], cfg.rms_eps)
-            q, k, v = L.attn_project_qkv(lp["attn"], cfg, h, q_pos)
-            kc, vc = cache["k"][i], cache["v"][i]
-            kc[rows, slots] = k.to(kc.dtype)
-            vc[rows, slots] = v.to(vc.dtype)
-            a = L.gqa_attention(q, kc, vc, mask)
-            x = x + L.attn_output(lp["attn"], a)
-            x = _mlp_block(cfg, lp, x)
+            if kind == "rglru":
+                y, (cc, hh) = rg.recurrent_block_decode(
+                    lp["rec"], cfg, h, cache["rec_conv"][ri],
+                    cache["rec_h"][ri])
+                cache["rec_conv"][ri] = cc
+                cache["rec_h"][ri] = hh
+                x = x + y
+                ri += 1
+            else:
+                q, k, v = L.attn_project_qkv(lp["attn"], cfg, h, q_pos)
+                kc, vc = cache["k"][ai], cache["v"][ai]
+                kc[rows, slots] = k.to(kc.dtype)
+                vc[rows, slots] = v.to(vc.dtype)
+                a = L.gqa_attention(q, kc, vc, mask)
+                x = x + L.attn_output(lp["attn"], a)
+                ai += 1
+            if "xattn" in lp:
+                x = _cross_attention(
+                    lp, cfg, x, cache["cross_k"][i], cache["cross_v"][i],
+                    lambda q, k, v: L.gqa_attention(q, k, v, xmask))
+            x = _mlp_block(cfg, lp, x, valid)
     cache["len"] += 1
     return _logits(cfg, params, x)[:, 0], cache

@@ -9,11 +9,19 @@ expert's C slots and their cost scales with top_k. Tokens past an
 expert's capacity are dropped (they keep the residual path), as in the
 published dropping implementations.
 
-Capacity is sized from every token of the batch, padding included, as
-the reference sizes it: identical padding tokens pick the same experts
-and, ranked first by the stable sort, can take the capacity real tokens
-of later rows need. The port keeps that behaviour to stay token-exact
-with the reference (ROADMAP.md queue 3).
+``moe_local`` takes a ``valid`` mask of the real tokens: only they are
+routed, and the capacity is sized from their count. The reference
+routes every token of the batch, padding included, so identical padding
+tokens, ranked first by the stable sort, can take the capacity that
+real tokens of later rows need, and which tokens drop then depends on
+what the padding holds. With the mask the result depends on the real
+tokens alone; without it (``valid=None``) every token is real, as in
+the reference. The mask never leaves the device: padding slots take a
+sentinel expert past the last, which sorts after every real slot and
+is never kept, and the capacity of the real tokens' count is a device
+value that limits the ranks inside the buffer sized for the whole
+batch (packing the real tokens would need their count on the host, a
+sync every moe layer).
 
 The expert-parallel path (``moe_ep``: all_to_all over a mesh's expert
 axis) is not ported; ``moe_apply`` with a mesh raises.
@@ -78,19 +86,35 @@ def _capacity(tokens: int, top_k: int, num_experts: int, cf: float) -> int:
     return max(4, -(-c // 4) * 4)  # round up to a multiple of 4
 
 
-def build_dispatch(sel, weights, num_experts: int, capacity: int):
+def _capacity_of(tokens, top_k: int, num_experts: int, cf: float):
+    """``_capacity`` of a device count: the same float64 operations in
+    the same order, so the same value, with no host sync."""
+    c = torch.ceil(tokens.double() * top_k / num_experts * cf).long()
+    return ((c + 3) // 4 * 4).clamp(min=4)
+
+
+def build_dispatch(sel, weights, num_experts: int, capacity: int,
+                   valid=None, limit=None):
     """argsort-based dispatch tables: (tok_idx [E, C] int64, an index
     into the padded token array where row T is the zero pad; w [E, C]
-    f32 combine weights, 0 on empty slots)."""
+    f32 combine weights, 0 on empty slots). ``valid`` [T] bool leaves
+    the other tokens out (a sentinel expert past the last: they sort
+    after every real slot and are never kept); ``limit`` (a device
+    count <= C) keeps only ranks below it."""
     T, k = sel.shape
     dev = sel.device
     flat_e = sel.reshape(-1)
+    if valid is not None:
+        flat_e = torch.where(valid.repeat_interleave(k), flat_e,
+                             num_experts)
     order = torch.argsort(flat_e, stable=True)      # slots sorted by expert
     sorted_e = flat_e[order]
     starts = torch.searchsorted(sorted_e, torch.arange(
-        num_experts, device=dev, dtype=sorted_e.dtype))
+        num_experts + 1, device=dev, dtype=sorted_e.dtype))
     rank = torch.arange(T * k, device=dev) - starts[sorted_e]
-    keep = rank < capacity
+    keep = rank < (capacity if limit is None else limit)
+    if valid is not None:
+        keep &= sorted_e < num_experts
     # a dropped slot writes the extra entry E * C, cut off below
     dest = torch.where(keep, sorted_e * capacity + rank,
                        num_experts * capacity)
@@ -113,16 +137,28 @@ def expert_ffn(params, xe):
 
 
 # ----------------------------------------------------------------- local path
-def moe_local(params, x, cfg):
-    """x [B, S, d] -> (y, aux_loss). Every token of the batch is routed
-    and counts toward the capacity, padding included."""
+def moe_local(params, x, cfg, valid=None):
+    """x [B, S, d] -> (y, aux_loss). ``valid`` [B, S] bool marks the real
+    tokens (None: all of them): they are routed and dispatched as the
+    reference routes a batch of exactly those tokens in their flat order
+    (their count sizes the capacity); the others get zero from the
+    routed experts (plus the shared experts' output). The expert
+    products run over the capacity of the whole batch; slots past the
+    real tokens' capacity stay empty. The aux loss counts every
+    token."""
     m = cfg.moe
     B, S, d = x.shape
     T = B * S
     x2 = x.reshape(T, d)
     weights, sel, aux = route(params["router"], x2, m.top_k)
     C = _capacity(T, m.top_k, m.num_experts, m.capacity_factor)
-    tok_idx, w_tab = build_dispatch(sel, weights, m.num_experts, C)
+    limit = None
+    if valid is not None:
+        valid = valid.reshape(T)
+        limit = _capacity_of(valid.sum(), m.top_k, m.num_experts,
+                             m.capacity_factor)
+    tok_idx, w_tab = build_dispatch(sel, weights, m.num_experts, C, valid,
+                                    limit)
     x_pad = torch.cat([x2, x2.new_zeros((1, d))])
     ye = expert_ffn(params, x_pad[tok_idx])             # [E, C, d]
     # Each real token receives one add per expert that kept it, onto a
@@ -138,9 +174,9 @@ def moe_local(params, x, cfg):
     return y, aux
 
 
-def moe_apply(params, x, cfg, mesh=None):
+def moe_apply(params, x, cfg, mesh=None, valid=None):
     if mesh is not None:
         raise NotImplementedError(
             "the expert-parallel moe over a mesh (moe_ep) is not ported "
             "yet (ROADMAP.md queue 1 item 6)")
-    return moe_local(params, x, cfg)
+    return moe_local(params, x, cfg, valid)

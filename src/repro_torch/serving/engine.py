@@ -13,7 +13,9 @@ reference's functional cache updates become in-place writes into the
 one cache, and its ``jax.jit`` has no counterpart (PyTorch runs
 eagerly). Two faults of the reference are not carried over (ROADMAP
 queue 3): its graft writes layer 0's prefill cache into every layer of
-the slot, and a held ssm slot's state advances with the step.
+the slot, and a held slot's recurrent state (ssm, rglru) advances with
+the step. A held slot's token is not routed by the moe layers either,
+so it takes no expert capacity from the scheduled ones.
 """
 from __future__ import annotations
 
@@ -62,8 +64,9 @@ def schedule_round(scheduler, kv, clock, slot_state, act, token_budget, *,
                    for i in slots}
 
 
-# the cache leaves a decode step advances in place of a ring slot
-RECURRENT = ("conv_x", "conv_bc", "ssm_state")
+# the cache leaves a decode step advances in place of a ring slot: the
+# ssm layers' and the hybrid's rglru layers'
+RECURRENT = ("conv_x", "conv_bc", "ssm_state", "rec_h", "rec_conv")
 
 
 @dataclass
@@ -179,13 +182,14 @@ class RealtimeLLMEngine:
             dtype=torch.int64, device=self.device)
         mask = np.zeros((self.slots,), bool)
         mask[sched_slots] = True
-        # a held slot's recurrent state (ssm) must not advance either:
-        # the reference rewinds only the length (ROADMAP queue 3)
+        # a held slot's recurrent state (ssm, rglru) must not advance
+        # either: the reference rewinds only the length (ROADMAP queue 3)
         held = torch.from_numpy(np.flatnonzero(~mask)).to(self.device)
         kept = {k: self.cache[k][:, held].clone() for k in RECURRENT
                 if k in self.cache and held.numel()}
-        logits, self.cache = decode_step(self.cfg, self.params, tokens,
-                                         self.cache)
+        logits, self.cache = decode_step(
+            self.cfg, self.params, tokens, self.cache,
+            valid=torch.from_numpy(mask).to(self.device))
         # hold unscheduled slots: rewind their cache length by one (their
         # stale KV entry is overwritten the next time they are scheduled)
         self.cache["len"] -= torch.from_numpy(~mask).to(self.device,

@@ -63,9 +63,12 @@ touches the device, the prefix plane's deep copy of shared pages in
 offload chunk does.
 
 Families: the global-attention stacks, as in the reference: dense, moe
-(every round routes each of its tokens, padding included, through the
-single-device ``moe_local``; on a mesh every rank runs it on the
-replicated weights) and vlm (its text path).
+(every round routes its real tokens through the single-device
+``moe_local``, padding rows and padded query slots left out, so they
+take no expert capacity; on a mesh every rank runs it on the replicated
+weights) and vlm (its text path). The reference routes the padding
+too, so where capacity drops tokens its streams depend on what the
+padding holds (ROADMAP.md queue 3).
 """
 from __future__ import annotations
 
@@ -105,13 +108,15 @@ from repro_torch.serving.spec_decode import build_proposer
 # ======================================================================
 def paged_decode_step(cfg, params, tokens, positions, k_pages, v_pages,
                       block_tables, seq_lens, write_page, write_slot,
-                      *, plain: bool = False, plane=None):
+                      *, valid=None, plain: bool = False, plane=None):
     """One token per batch row through the paged KV store.
 
     tokens/positions [B] int; write_page/write_slot [B] int64;
     k_pages/v_pages [L, P+1, page, Hkv, hd], written in place;
-    block_tables [B, pps] i32; seq_lens [B] i32 (post-write lengths).
-    Returns logits [B, V] f32.
+    block_tables [B, pps] i32; seq_lens [B] i32 (post-write lengths);
+    ``valid`` [B] bool marks the rows that serve a session (a padding
+    row has seq_lens 1 and writes the scratch page), the only tokens
+    the moe layers route (None: all). Returns logits [B, V] f32.
 
     ``plain`` (tests and the chip check only) attends through the
     kernel's plain version on any device, to hold the kernel's step
@@ -125,6 +130,8 @@ def paged_decode_step(cfg, params, tokens, positions, k_pages, v_pages,
     attend = ref.paged_attention_ref if plain else paged_attention
     x = _embed(cfg, params, tokens[:, None])
     pos = positions[:, None]                            # [B, 1]
+    if valid is not None:
+        valid = valid[:, None]
     for i, lp in enumerate(layer_params(params)):
         h = L.rms_norm(x, lp["ln1"], cfg.rms_eps)
         q, k, v = L.attn_project_qkv(lp["attn"], cfg, h, pos)
@@ -140,7 +147,7 @@ def paged_decode_step(cfg, params, tokens, positions, k_pages, v_pages,
             a = plane.attend(q[:, 0].contiguous(), kc, vc, block_tables,
                              seq_lens)
         x = x + L.attn_output(lp["attn"], a[:, None])
-        x = _mlp_block(cfg, lp, x)
+        x = _mlp_block(cfg, lp, x, valid)
     return _logits(cfg, params, x)[:, 0]
 
 
@@ -164,12 +171,14 @@ def paged_fused_step(cfg, params, tokens, positions, k_pages, v_pages,
     Per layer the whole chunk's K/V is scattered into the pages first,
     then every query token attends causally over history + chunk prefix
     through ``paged_prefill_attention`` — so a PREFILL slot's C-token
-    grant and every DECODE slot's single token share one step.
+    grant and every DECODE slot's single token share one step. The moe
+    layers route only the valid tokens (``t < q_lens``).
     ``plain`` and ``plane`` are as in ``paged_decode_step``.
     """
     attend = ref.paged_prefill_attention_ref if plain \
         else paged_prefill_attention
     x = _embed(cfg, params, tokens)                     # [B, Q, d]
+    valid = torch.arange(x.shape[1], device=x.device) < q_lens[:, None]
     for i, lp in enumerate(layer_params(params)):
         h = L.rms_norm(x, lp["ln1"], cfg.rms_eps)
         q, k, v = L.attn_project_qkv(lp["attn"], cfg, h, positions)
@@ -184,7 +193,7 @@ def paged_fused_step(cfg, params, tokens, positions, k_pages, v_pages,
             a = plane.attend_chunk(q.contiguous(), kc, vc, block_tables,
                                    q_start, q_lens)
         x = x + L.attn_output(lp["attn"], a)
-        x = _mlp_block(cfg, lp, x)
+        x = _mlp_block(cfg, lp, x, valid)
     last = (q_lens.long() - 1).clamp(min=0)
     rows = torch.arange(x.shape[0], device=x.device)
     if spec:
@@ -608,7 +617,7 @@ class PagedRealtimeEngine:
         """One per-token step of the fixed batch; logits [B, V]."""
         return self._device(_OP_STEP, tokens, tabs.positions,
                             tabs.block_tables, tabs.seq_lens,
-                            tabs.write_page, tabs.write_slot)
+                            tabs.write_page, tabs.write_slot, tabs.active)
 
     def _fused(self, tokens: np.ndarray, tabs: FusedBatchTables):
         """One fused round of the fixed batch: the step's output."""
@@ -616,13 +625,15 @@ class PagedRealtimeEngine:
                             tabs.block_tables, tabs.q_start, tabs.q_lens,
                             tabs.write_pages, tabs.write_slots)
 
-    def _op_step(self, tokens, positions, tables, seq_lens, page, slot):
+    def _op_step(self, tokens, positions, tables, seq_lens, page, slot,
+                 active):
         i32, i64 = torch.int32, torch.int64
         return self._step_fn(
             self.cfg, self.params, self._tensor(tokens, i64),
             self._tensor(positions, i32), self.k_pages, self.v_pages,
             self._tensor(tables, i32), self._tensor(seq_lens, i32),
-            self._tensor(page, i64), self._tensor(slot, i64))
+            self._tensor(page, i64), self._tensor(slot, i64),
+            valid=self._tensor(active, torch.bool))
 
     def _op_fused(self, tokens, positions, tables, q_start, q_lens, pages,
                   slots):

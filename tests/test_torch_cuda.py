@@ -541,3 +541,34 @@ def test_cuda_head_dim_256_matches_plain(dtype):
                                       q_offset=q_offset)
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
+
+
+FAMILY_FLASH_CASES = [  # B, Hq, Hkv, Sq, Skv, D, options
+    # recurrentgemma-9b's local-attention layers: 16 query heads on one
+    # KV head of 256, a 2048-token window, prompts around and past it
+    *((1, 16, 1, S, S, 256, dict(window=2048))
+      for S in (2047, 2048, 2049, 3000)),
+    # whisper-tiny's encoder self-attention over 1500 frames and its
+    # decoder's cross-attention, 448 tokens over them: D 64, not causal
+    (1, 6, 6, 1500, 1500, 64, dict(causal=False)),
+    (1, 6, 6, 448, 1500, 64, dict(causal=False)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_prefill_window_and_noncausal(dtype):
+    """On the card, ``flash_prefill`` at the hybrid and encdec families'
+    shapes against its plain version: windowed at G = 16, D 256 (S = W
+    - 1, W, W + 1 and far past W), and ``causal=False`` with Sq = Skv
+    and with Sq != Skv, no length a multiple of the tiles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the H100)")
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    for B, Hq, Hkv, Sq, Skv, D, kw in FAMILY_FLASH_CASES:
+        q, k, v = (torch.from_numpy(a).to("cuda", TDT[dtype]) for a in
+                   flash_case(0, B, Hq, Hkv, Sq, Skv, D))
+        got = flash_prefill(q, k, v, **kw)
+        want = tref.flash_prefill_ref(q, k, v, **kw)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=TOL[dtype], atol=TOL[dtype])

@@ -438,6 +438,9 @@ def test_port_imports_neither_jax_nor_reference():
             for m in ("__init__", "replica_set", "router", "migration",
                       "gateway", "replay", "harness")} \
         | {"src/repro_torch/distributed/fault_tolerance.py"} <= names
+    # and the model families' modules
+    assert {f"src/repro_torch/models/{m}.py"
+            for m in ("model", "layers", "moe", "ssm", "rglru")} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]

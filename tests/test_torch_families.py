@@ -12,14 +12,14 @@ d_model 64, f32) with JAX's weights carried across by
   ``test_torch_engine.py``: eviction, reload, barge-in), and the moe
   config on the spec-3 and int8 planes;
 - the 16-expert top-2 variant at the published capacity factor 1.25 on 8
-  slots: padding in a fused round takes expert capacity, so some stream
-  differs from the B = 1 greedy one in both packages (a fault of the
-  reference, kept in the port); which one depends on the unspecified
-  attention output of padded query slots, and with the Pallas kernel's
-  value there the port's streams equal the JAX engine's. At a capacity
-  factor of E / k no token can drop and every stream equals B = 1;
-- the config registry as data: every config of the reference, the
-  families still out of the port raising.
+  slots: the JAX engine routes a fused round's padding, which takes
+  expert capacity, so some of its streams differ from B = 1 (a fault of
+  the reference); the port routes only the real tokens, and its streams
+  on both planes do not depend on what the padding holds (the Pallas
+  kernel's value, random values). At a capacity factor of E / k no
+  token can drop: every stream equals B = 1 and the JAX engine's;
+- the config registry as data: every config of the reference, mla
+  (still out of the port) raising.
 
 The reference's norm scales start at zero, which makes every stream one
 repeated token; the weights are perturbed as in
@@ -175,8 +175,14 @@ def test_paged_engine_matches_jax(pairs, fid, fused):
 @pytest.mark.parametrize("variant", ["spec", "int8"])
 def test_moe_feature_planes_match_jax(pairs, variant):
     """The reference's ``_drive_trace`` (eviction, reload, barge-in) on
-    the moe config with three-token drafts or the int8 wire tier."""
+    the moe config with three-token drafts or the int8 wire tier, at a
+    capacity factor of E / k: there no token drops, so the JAX engine's
+    routing of the padded draft and chunk slots (ROADMAP.md queue 3)
+    cannot part the streams."""
     jcfg, jp, tcfg, tp = pairs("moe")
+    jcfg, tcfg = (c.replace(moe=dataclasses.replace(
+        c.moe, capacity_factor=c.moe.num_experts / c.moe.top_k))
+        for c in (jcfg, tcfg))
     kw = dict(ranks.GEOMETRY, **ranks.VARIANTS[variant])
     want = ranks.drive_trace(jpe.PagedRealtimeEngine(jcfg, jp, **kw), VOCAB)
     got = ranks.drive_trace(tpe.PagedRealtimeEngine(tcfg, tp, device="cpu",
@@ -187,16 +193,16 @@ def test_moe_feature_planes_match_jax(pairs, variant):
     assert got["evicted"] > 0
 
 
-def _fault_engine(make, vocab, rng_seed=5):
+def _fault_engine(make, vocab, rng_seed=5, max_new=(6,) * 8):
     """8 sessions on 8 slots, submitted at once, prompts of 5-16 tokens,
-    chunks of up to 4 beside decode tokens. Returns ({sid: tokens},
-    {sid: prompt})."""
+    chunks of up to 4 beside decode tokens, session i capped at
+    ``max_new[i]`` tokens. Returns ({sid: tokens}, {sid: prompt})."""
     rng = np.random.default_rng(rng_seed)
     eng = make(slots=8, page_size=4, pages_per_seq=8, num_pages=80)
     prompts = {f"s{i}": rng.integers(0, vocab, size=int(n))
                for i, n in enumerate(rng.integers(5, 17, size=8))}
-    slots = {eng.submit_turn(sid, p, max_new_tokens=6): sid
-             for sid, p in prompts.items()}
+    slots = {eng.submit_turn(sid, p, max_new_tokens=n): sid
+             for (sid, p), n in zip(prompts.items(), max_new)}
     rounds = 0
     while eng.active():
         grants = {}
@@ -255,38 +261,78 @@ def _pallas_padded_slots(q, k_pages, v_pages, block_tables, q_start,
     return out
 
 
+def _random_padded_slots(seed):
+    """The fused attention with every padded query slot (rows with
+    q_lens 0 included) overwritten by seeded N(0, 1) values."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def attend(q, k_pages, v_pages, block_tables, q_start, q_lens, **kw):
+        out = ref.paged_prefill_attention_ref(q, k_pages, v_pages,
+                                              block_tables, q_start, q_lens,
+                                              **kw)
+        for b, n in enumerate(q_lens.tolist()):
+            out[b, n:] = torch.randn(out[b, n:].shape, generator=gen)
+        return out
+    return attend
+
+
+def _random_padding_rows(seed):
+    """The decode attention with every padding row (its table all the
+    scratch page, the last physical page) overwritten by one seeded
+    N(0, 10^2) draw a call: identical rows route alike and can fill
+    their experts."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def attend(q, k_pages, v_pages, block_tables, seq_lens, **kw):
+        out = ref.paged_attention_ref(q, k_pages, v_pages, block_tables,
+                                      seq_lens, **kw)
+        fill = 10 * torch.randn(out.shape[1:], generator=gen)
+        for b in range(out.shape[0]):
+            if int(block_tables[b, 0]) == k_pages.shape[0] - 1:
+                out[b] = fill
+        return out
+    return attend
+
+
 def test_moe_padding_capacity_fault_fused_plane(published_routing,
                                                 monkeypatch):
-    """Both engines route every token of a fused round, padding
-    included, so some stream differs from B = 1 in each. Which one
-    depends on what the padded query slots route to, hence on their
-    attention output, which neither kernel specifies: with the Pallas
-    kernel's value in those slots the port's streams are the JAX
-    engine's, session for session."""
+    """The JAX engine routes every token of a fused round, padding
+    included, so some of its streams differ from B = 1. The port routes
+    only the real tokens: its streams on both planes do not change when
+    the padded query slots hold the Pallas kernel's value, or random
+    values, instead of the port's kernel's zeros (and the padding rows
+    of a per-token step random values)."""
     jcfg, jp, tcfg, tp = published_routing
     want, prompts = _fault_engine(
         lambda **kw: jpe.PagedRealtimeEngine(jcfg, jp, **kw), VOCAB)
-    own, _ = _fault_engine(
-        lambda **kw: tpe.PagedRealtimeEngine(tcfg, tp, device="cpu", **kw),
-        VOCAB)
     b1 = {sid: _greedy(tcfg, tp, p, 6) for sid, p in prompts.items()}
-    # padding in the fused round takes capacity (ROADMAP.md queue 3):
-    # when this fails, the fault is fixed and this test should say so
-    for streams in (want, own):
-        assert sum(streams[s] == b1[s] for s in prompts) < len(prompts)
-    monkeypatch.setattr(tpe, "paged_prefill_attention",
-                        _pallas_padded_slots)
-    got, _ = _fault_engine(
-        lambda **kw: tpe.PagedRealtimeEngine(tcfg, tp, device="cpu", **kw),
-        VOCAB)
-    assert got == want, "the port's fused streams differ from the JAX " \
-        "engine's"
+    # the reference's fault (ROADMAP.md queue 3, resolved in the port)
+    assert sum(want[s] == b1[s] for s in prompts) < len(prompts)
+    # the per-token plane takes turn 0's prompt through the dense graft,
+    # so its steps are decode rows: slots 0-5 stop after one token and
+    # leave six padding rows ahead of the two live ones
+    held_back = (1,) * 6 + (16,) * 2
+    for fused in (True, False):
+        def run():
+            return _fault_engine(
+                lambda **kw: tpe.PagedRealtimeEngine(
+                    tcfg, tp, device="cpu", fused_step=fused, **kw),
+                VOCAB, max_new=(6,) * 8 if fused else held_back)[0]
+        own = run()
+        fills = ((_pallas_padded_slots, _random_padded_slots(1))
+                 if fused else (_random_padding_rows(1),))
+        for fill in fills:
+            with monkeypatch.context() as m:
+                m.setattr(tpe, "paged_prefill_attention" if fused
+                          else "paged_attention", fill)
+                assert run() == own, (fused, fill)
 
 
 def test_moe_without_drops_equals_b1(published_routing):
     """At capacity factor E / k = 8 no token can drop: every fused stream
-    of the same trace equals the B = 1 greedy one."""
-    _, _, tcfg, tp = published_routing
+    of the same trace equals the B = 1 greedy one, and the JAX engine's
+    stream."""
+    jcfg, jp, tcfg, tp = published_routing
     cfg = tcfg.replace(moe=dataclasses.replace(tcfg.moe,
                                                capacity_factor=8.0))
     got, prompts = _fault_engine(
@@ -294,6 +340,11 @@ def test_moe_without_drops_equals_b1(published_routing):
         VOCAB)
     for sid, p in prompts.items():
         assert got[sid] == _greedy(cfg, tp, p, 6), sid
+    jcfg = jcfg.replace(moe=dataclasses.replace(jcfg.moe,
+                                                capacity_factor=8.0))
+    want, _ = _fault_engine(
+        lambda **kw: jpe.PagedRealtimeEngine(jcfg, jp, **kw), VOCAB)
+    assert got == want
 
 
 # ======================================================================
@@ -306,9 +357,7 @@ def test_list_configs_matches_reference():
             dataclasses.asdict(j_get_config(name)), name
 
 
-@pytest.mark.parametrize("name,family", [
-    ("deepseek-v2-236b", "mla"), ("recurrentgemma-9b", "hybrid"),
-    ("whisper-tiny", "encdec")])
+@pytest.mark.parametrize("name,family", [("deepseek-v2-236b", "mla")])
 def test_unserved_families_raise(name, family):
     cfg = reduced(get_config(name), layers=2, d_model=64, vocab=VOCAB)
     assert family in (cfg.family, "mla" if cfg.mla else None)

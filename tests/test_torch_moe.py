@@ -91,6 +91,18 @@ def test_capacity_matches_jax():
                         jmoe._capacity(T, k, E, cf)
 
 
+def test_device_capacity_matches_host():
+    """The capacity of a device count (the masked path's, no host sync)
+    equals ``_capacity`` of the same count."""
+    for k in (1, 2):
+        for E in (4, 16):
+            for cf in (0.25, 1.25, 8.0):
+                n = torch.arange(0, 1200)
+                got = tmoe._capacity_of(n, k, E, cf).tolist()
+                assert got == [tmoe._capacity(int(t), k, E, cf)
+                               for t in n], (k, E, cf)
+
+
 @pytest.mark.parametrize("cf", [0.25, 1.25, 8.0])
 @pytest.mark.parametrize("E,k", [(4, 1), (4, 2), (16, 2)])
 def test_build_dispatch_matches_jax(E, k, cf):
@@ -197,6 +209,79 @@ def test_padding_takes_capacity():
     assert torch.count_nonzero(y[0, 40]) == 0       # dropped
     alone, _ = tmoe.moe_local(tp, _t(x[40:]).reshape(1, 8, D), tcfg)
     assert torch.count_nonzero(alone[0, 0]) > 0     # kept without padding
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["routed", "shared"])
+@pytest.mark.parametrize("cf", [0.25, 1.25])
+@pytest.mark.parametrize("E,k", [(4, 2), (16, 1), (16, 2)])
+def test_moe_local_with_mask_matches_jax_on_packed_tokens(E, k, cf, shared):
+    """``moe_local(x, valid)`` on x [4, 12, d] under random masks of 14
+    and 37 valid tokens equals the reference's ``moe_local`` run on the
+    packed valid tokens alone (one row of T = their count), scattered
+    back, with zeros from the routed experts at the padding (the shared
+    experts' output there)."""
+    rng = np.random.default_rng(100 + E + k)
+    jcfg, tcfg = _cfgs(E, k, cf, shared)
+    jp, tp = _expert_params(rng, E, "float32", shared)
+    x = _x(rng, 48, 0).reshape(4, 12, D)
+    for n in (14, 37):
+        idx = np.sort(rng.choice(48, n, replace=False))
+        valid = np.zeros(48, bool)
+        valid[idx] = True
+        valid = valid.reshape(4, 12)
+        packed = x.reshape(48, D)[idx][None]
+        jy, _ = jmoe.moe_local(jp, _j(packed), jcfg)
+        want = np.zeros((48, D), np.float32)
+        want[idx] = _np(jy)[0]
+        if shared:
+            want[~valid.reshape(-1)] = _np(jmoe.mlp_apply(
+                jp["shared"], _j(x.reshape(48, D)[~valid.reshape(-1)]),
+                "swiglu"))
+        ty, _ = tmoe.moe_local(tp, _t(x), tcfg, torch.from_numpy(valid))
+        np.testing.assert_allclose(_np(ty).reshape(48, D), want,
+                                   rtol=TOL["float32"], atol=TOL["float32"])
+        via_apply = tmoe.moe_apply(tp, _t(x), tcfg,
+                                   valid=torch.from_numpy(valid))[0]
+        assert torch.equal(via_apply, ty)
+
+
+def test_moe_local_mask_edges():
+    """An all-true mask is bit for bit no mask; an all-false one routes
+    nothing (zeros, or the shared experts' output)."""
+    rng = np.random.default_rng(12)
+    for shared in (False, True):
+        _, tcfg = _cfgs(16, 2, 1.25, shared)
+        _, tp = _expert_params(rng, 16, "float32", shared)
+        x = _t(_x(rng, 24, 10).reshape(2, 12, D))
+        y, _ = tmoe.moe_local(tp, x, tcfg)
+        y_all, _ = tmoe.moe_local(tp, x, tcfg, torch.ones(2, 12, dtype=bool))
+        assert torch.equal(y_all, y)
+        y_none, _ = tmoe.moe_local(tp, x, tcfg,
+                                   torch.zeros(2, 12, dtype=bool))
+        want = tmoe.mlp_apply(tp["shared"], x, "swiglu") if shared \
+            else torch.zeros_like(x)
+        assert torch.equal(y_none, want)
+
+
+def test_masked_padding_takes_no_capacity():
+    """The case of ``test_padding_takes_capacity`` with the padding
+    masked out: the real token is kept, its output the one it gets in a
+    batch of the real tokens alone, whatever the padding rows hold."""
+    rng = np.random.default_rng(11)
+    E, k = 16, 2
+    _, tcfg = _cfgs(E, k, 1.25, False)
+    _, tp = _expert_params(rng, E, "float32")
+    x = rng.standard_normal((48, D)).astype(np.float32)
+    valid = np.zeros(48, bool)
+    valid[40:] = True
+    alone, _ = tmoe.moe_local(tp, _t(x[40:]).reshape(1, 8, D), tcfg)
+    for pad in (x[:40], np.zeros((40, D), np.float32),
+                np.repeat(x[:1], 40, 0)):
+        x[:40] = pad
+        y, _ = tmoe.moe_local(tp, _t(x).reshape(1, 48, D), tcfg,
+                              torch.from_numpy(valid)[None])
+        assert torch.equal(y[0, 40:], alone[0])
+        assert torch.count_nonzero(y[0, :40]) == 0
 
 
 def test_moe_init_tree_matches_jax():
