@@ -82,6 +82,21 @@ read just after:
   through ``prefill(enc_frames=)`` and ``decode_step`` over 1500 seeded
   frames, B 4, in bf16 and f32 (f32 held to B = 1), against the plain
   versions;
+- (k) head dims 192 and 80 and the mla family: (k0) the paged pair at
+  nemotron-4's heads (96 on 8 KV heads of 192) and at h2o-danube's (32
+  on 8 of 80) on trace (b)'s round, and ``flash_prefill`` causal at
+  nemotron-4's heads, at multi-head latent attention's (128 heads of
+  192, V's 128 columns padded) and windowed at h2o-danube's (4096,
+  S 4095-5000), each against its plain version and timed beside SDPA;
+  (k1) deepseek-v2-236b at full width on its first 6 of 60 layers (MLA,
+  160 experts top-6) on the single-turn engine, 4 prompts of 64-2048
+  tokens, against its plain prefill, and its f32 twin on 2 layers held
+  to B = 1; (k2) nemotron-4-340b at full width on its first 4 of 96
+  layers on both planes of trace (b), and its f32 twin on 1 layer held
+  to B = 1; (k3) h2o-danube-1.8b whole on the single-turn engine,
+  prompts of 1171-5000 tokens on a 4096-slot ring, bf16 and f32 (f32
+  held to B = 1), against the plain versions; (k4) qwen3-4b whole in
+  f32 on both planes of trace (b), held to B = 1;
 
 and checks what comes out. Every phase is checked; any failure exits
 non-zero. The last line of standard output is
@@ -312,9 +327,12 @@ def build_kernels() -> None:
     log(f"[build] nvcc sm_90a, {len(_build.SOURCES)} source(s) in "
         f"{seconds:.1f} s")
     for name, rep in reports.items():
+        fn = ""
         for line in rep.splitlines():
-            if "Used" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1][:110]
+            elif "Used" in line or "spill" in line:
+                log(f"[build] {name}: {fn}: {line.strip()}")
     # tensor-core proof: every bf16 attention kernel's SASS holds HMMA,
     # and so does ssd_scan's C B^T for bf16 B/C, shared by its X types
     # (matched by mangled name; each pattern must match some kernel)
@@ -838,23 +856,30 @@ def single_turn_serve(cfg, params, dev, prompts, n_new, capacity) -> dict:
     return out
 
 
-def single_turn_check(cfg, params, dev, prompts, out, n_new, capacity):
-    """Each session's tokens against the B = 1 greedy reference, and a
-    full-width prefill of the longest prompt through the kernels against
-    one through their plain versions."""
+def single_turn_check(cfg, params, dev, prompts, out, n_new, capacity,
+                      hold: bool = True,
+                      types=(torch.bfloat16, torch.float32)):
+    """Each session's tokens against the B = 1 greedy reference (held,
+    or with ``hold`` False only logged: in bf16 a batch's products round
+    at other shapes than B = 1's, which can flip a near tie of an
+    untied model's random logits), and a full-width prefill of the
+    longest prompt through the kernels against one through their plain
+    versions, in each of ``types``."""
     from repro_torch.models.model import init_cache, prefill
     same = {sid: out[sid] == greedy(cfg, params, p, n_new, capacity, dev)
             for sid, p in prompts.items()}
-    log(f"[single] {cfg.name}: sessions with the greedy reference's "
-        f"tokens: {sum(same.values())}/{len(same)}; "
+    log(f"[single] {cfg.name} {str(cfg.activation_dtype())[6:]}: sessions "
+        f"with the greedy reference's tokens: {sum(same.values())}/"
+        f"{len(same)}{'' if hold else ' (logged)'}; "
         f"first tokens {[out[s][:6] for s in sorted(out)]}")
-    check(all(same.values()), f"{cfg.name}: engine tokens differ from the "
-          f"greedy reference for {[s for s, ok in same.items() if not ok]}")
+    check(all(same.values()) or not hold, f"{cfg.name}: engine tokens "
+          f"differ from the greedy reference for "
+          f"{[s for s, ok in same.items() if not ok]}")
     for s in out:
         check(len(out[s]) == n_new, f"{s}: {len(out[s])} tokens")
     longest = max(prompts.values(), key=len)
     tok = torch.as_tensor(longest, device=dev)[None, :]
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in types:
         name = str(dtype)[6:]
         c = cfg.replace(dtype=name, param_dtype=name)
         p = cast_params(params, dtype)
@@ -1650,13 +1675,19 @@ CUT_LAYERS = 14
 
 
 def first_layers(cfg, params, n: int):
-    """``cfg`` and ``params`` cut to their first ``n`` layers: views into
-    the stacked weights, every width unchanged."""
+    """``cfg`` and ``params`` cut to their first ``n`` layers (the
+    unstacked ``layers_pre`` first): views into the stacked weights,
+    every width unchanged. ``layers`` leads the dict, so that
+    ``f32_consuming`` frees the stacked storage before it copies the
+    embeddings."""
+    n_stacked = n - len(params.get("layers_pre", []))
+
     def cut(t):
         return {k: cut(v) for k, v in t.items()} if isinstance(t, dict) \
-            else t[:n]
-    return cfg.replace(num_layers=n), dict(params, layers=cut(
-        params["layers"]))
+            else t[:n_stacked]
+    return cfg.replace(num_layers=n), dict(layers=cut(params["layers"]),
+                                           **{k: v for k, v in params.items()
+                                              if k != "layers"})
 
 
 def stripe_merge(parts):
@@ -2350,27 +2381,24 @@ PALI_HEADS = dict(Hq=8, Hkv=1, D=256)
 PHI_LAYERS = 8
 
 
-def family_kernels_phase(dev) -> None:
-    """(i0) the attention kernels at head dim 256: the paged pair at
-    paligemma-3b's round (B 8, Q 16 and 1, contexts 0-411) in f32 (held
-    to the plain version at 2e-5) and bf16 (held per row to the f32
-    split plain version, planted faults included), the fused kernel at
-    Q = 1 bitwise the decode kernel; ``flash_prefill`` at Hq 8, Hkv 1,
-    2048 tokens, causal. The bf16 calls are timed beside their plain
-    versions, SDPA and their bounds (logged: the kernels' line keeps
-    the qwen2-1.5b shapes)."""
+def paged_dim_rows(dev, tag, heads, g, timer) -> dict:
+    """The paged pair at trace (b)'s round (B 8, Q 16 and 1, contexts
+    0-411) at ``heads`` (Hq, Hkv, D) in f32 (held to the plain version
+    at 2e-5) and bf16 (held at 2e-2 to the plain version in bf16 and in
+    f32, and per row to the f32 split plain version, planted faults
+    included), the fused kernel at Q = 1 bitwise the decode kernel. The
+    bf16 calls are timed beside their plain versions, SDPA and their
+    bounds. Returns {kernel: its bf16 row}."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_prefill import flash_prefill
     from repro_torch.kernels.paged_attention import (
         paged_attention, paged_prefill_attention)
-    F = torch.nn.functional
-    g = torch.Generator(device=dev).manual_seed(SEED + 20)
-    timer = Timer(dev)
     ctx = [300, 170, 411, 96, 250, 333, 128, 0]
+    shape = f"Hq={heads['Hq']} Hkv={heads['Hkv']} D={heads['D']}"
+    rows = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype)[6:]
         q, kp, vp, bt, qs, ql = kernel_case(dev, dtype, 8, 16, ctx, g,
-                                            **PALI_HEADS)
+                                            **heads)
         sl, qd = qs + 1, q[:, 0].contiguous()
         got = paged_prefill_attention(q, kp, vp, bt, qs, ql)
         got_d = paged_attention(qd, kp, vp, bt, sl)
@@ -2380,25 +2408,33 @@ def family_kernels_phase(dev) -> None:
             q, kp, vp, bt, qs, ql), ql)
         e_d = (got_d.float() - ref.paged_attention_ref(
             qd, kp, vp, bt, sl).float()).abs().max().item()
+        if dtype == torch.bfloat16:
+            f32 = [x.float() for x in (q, kp, vp)]
+            e_f = max(e_f, max_valid_err(got, ref.paged_prefill_attention_ref(
+                *f32, bt, qs, ql), ql))
+            e_d = max(e_d, (got_d.float() - ref.paged_attention_ref(
+                f32[0][:, 0].contiguous(), *f32[1:], bt, sl)).abs().max()
+                .item())
         torch.cuda.synchronize()
         bitwise = torch.equal(one[:, 0], got_d)
-        log(f"[family] (i0) {name} D=256 Hq=8 Hkv=1: paged_prefill_"
-            f"attention max_abs_err {e_f}, paged_attention {e_d} (tol "
-            f"{TOL[dtype]}); fused Q=1 == decode bitwise: {bitwise}")
+        log(f"[family] {tag} {name} {shape}: paged_prefill_attention "
+            f"max_abs_err {e_f}, paged_attention {e_d} (tol {TOL[dtype]}"
+            f"{', also vs f32 plain' if dtype == torch.bfloat16 else ''});"
+            f" fused Q=1 == decode bitwise: {bitwise}")
         check(torch.isfinite(got).all().item() and max(e_f, e_d)
-              <= TOL[dtype], f"(i0) paged kernels {name} D=256: "
+              <= TOL[dtype], f"{tag} paged kernels {name} {shape}: "
               f"{e_f} / {e_d}")
-        check(bitwise, f"(i0) {name} D=256: fused kernel at Q=1 != decode")
+        check(bitwise, f"{tag} {name} {shape}: fused kernel at Q=1 != "
+              "decode")
         if dtype != torch.bfloat16:
             continue
-        split_check("(i0) paligemma round, D=256", got, q, kp, vp, bt, qs,
-                    ql)
-        for kname, fn, plain, args, dec in (
+        split_check(f"{tag} round, {shape}", got, q, kp, vp, bt, qs, ql)
+        for kname, fn, plain, args, dec, err in (
                 ("paged_prefill_attention", paged_prefill_attention,
                  ref.paged_prefill_attention_ref, (q, kp, vp, bt, qs, ql),
-                 False),
+                 False, e_f),
                 ("paged_attention", paged_attention,
-                 ref.paged_attention_ref, (qd, kp, vp, bt, sl), True)):
+                 ref.paged_attention_ref, (qd, kp, vp, bt, sl), True, e_d)):
             lens = None if dec else ql
             ms = timer(lambda: fn(*args))
             plain_ms = timer(lambda: plain(*args))
@@ -2406,36 +2442,96 @@ def family_kernels_phase(dev) -> None:
                                           lens, dec))
             bound_ms, bound_by = attention_bound(args[0], kp, args[4], lens,
                                                  dec)
-            log(f"[family] (i0) {kname} bf16 B=8 Q={1 if dec else 16} "
-                f"Hq=8 Hkv=1 D=256 ctx={ctx}: {ms:.4f} ms (plain "
-                f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-                f"{bound_ms:.5f} ms by {bound_by})")
+            rows[kname] = dict(
+                name=kname, route="cuda", source=SOURCES[kname],
+                replaces=REPLACES[kname], launches=0, max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=lib_ms)
+            log(f"[family] {tag} {kname} bf16 B=8 Q={1 if dec else 16} "
+                f"{shape} ctx={ctx}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+                f"sdpa {lib_ms:.4f} ms, bound {bound_ms:.5f} ms by "
+                f"{bound_by})")
+    return rows
+
+
+def sdpa_backend(q, k, v, mask) -> str:
+    """The SDPA backend PyTorch's dispatcher picks for this call."""
+    from torch.nn.attention import SDPBackend
+    try:
+        return SDPBackend(int(torch._fused_sdp_choice(
+            q, k, v, attn_mask=mask, enable_gqa=True))).name
+    except (AttributeError, TypeError, RuntimeError, ValueError) as e:
+        return f"not determined ({type(e).__name__})"
+
+
+def flash_case_row(dev, g, timer, tag, B, Hq, Hkv, Sq, Skv, D, kw,
+                   v_cols=None) -> dict:
+    """``flash_prefill`` on one case in both types against its plain
+    version (bf16 also against the f32 plain version on the same inputs);
+    V's columns from ``v_cols`` on are zeros where it is given (MLA's V
+    padded to q/k's D). The bf16 call is timed beside its plain
+    version, SDPA (causal, or an explicit boolean mask at a window; the
+    backend the dispatcher picks is logged) and its bound. Returns the
+    bf16 row."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    F = torch.nn.functional
+    shape = f"B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Skv={Skv} D={D} {kw}" + (
+        f" V {v_cols} columns" if v_cols else "")
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype)[6:]
-        q, k, v = (torch.randn(1, h, 2048, 256, generator=g, device=dev)
-                   .to(dtype) for h in (8, 1, 1))
-        got = flash_prefill(q, k, v)
-        torch.cuda.synchronize()
-        err, ok = allclose_err(got, ref.flash_prefill_ref(q, k, v),
+        q = torch.randn(B, Hq, Sq, D, generator=g, device=dev).to(dtype)
+        k, v = (torch.randn(B, Hkv, Skv, D, generator=g, device=dev)
+                .to(dtype) for _ in range(2))
+        if v_cols:
+            v[..., v_cols:] = 0
+        got = flash_prefill(q, k, v, **kw)
+        err, ok = allclose_err(got, ref.flash_prefill_ref(q, k, v, **kw),
                                TOL[dtype])
         if dtype == torch.bfloat16:
-            # and against the plain version in f32 on the same inputs
             e32, ok32 = allclose_err(got, ref.flash_prefill_ref(
-                q.float(), k.float(), v.float()), TOL[dtype])
+                q.float(), k.float(), v.float(), **kw), TOL[dtype])
             err, ok = max(err, e32), ok and ok32
-        log(f"[family] (i0) {name} flash_prefill D=256 Hq=8 Hkv=1 "
-            f"Sq=Skv=2048 causal: max_abs_err {err} (tol {TOL[dtype]})")
+        torch.cuda.synchronize()
+        log(f"[family] {tag} {name} flash_prefill ({shape}): max_abs_err "
+            f"{err} (tol {TOL[dtype]})")
         check(torch.isfinite(got).all().item() and ok,
-              f"(i0) flash_prefill {name} D=256: {err}")
-        if dtype == torch.bfloat16:
-            ms = timer(lambda: flash_prefill(q, k, v))
-            plain_ms = timer(lambda: ref.flash_prefill_ref(q, k, v))
-            lib_ms = timer(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True))
-            bound_ms, bound_by = flash_bound(q, k, None, 0)
-            log(f"[family] (i0) flash_prefill bf16 D=256 Hq=8 Hkv=1 "
-                f"Sq=Skv=2048: {ms:.4f} ms (plain {plain_ms:.4f} ms, sdpa "
-                f"{lib_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by})")
+              f"{tag} flash_prefill {name}: {err}")
+    causal = kw.get("causal", True)
+    window = kw.get("window")
+    mask = None
+    if window is not None:
+        qp = torch.arange(Sq, device=dev)[:, None]
+        kp = torch.arange(Skv, device=dev)[None, :]
+        mask = (kp <= qp) & (qp - kp < window)
+    is_causal = causal and mask is None
+    ms = timer(lambda: flash_prefill(q, k, v, **kw))
+    plain_ms = timer(lambda: ref.flash_prefill_ref(q, k, v, **kw))
+    lib_ms = timer(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, is_causal=is_causal, enable_gqa=True))
+    bound_ms, bound_by = flash_bound(q, k, window, kw.get("q_offset", 0),
+                                     causal)
+    log(f"[family] {tag} flash_prefill bf16: {ms:.4f} ms (plain "
+        f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms on "
+        f"{sdpa_backend(q, k, v, mask)}, bound {bound_ms:.5f} ms by "
+        f"{bound_by})")
+    return dict(name="flash_prefill", route="cuda",
+                source=SOURCES["flash_prefill"],
+                replaces=REPLACES["flash_prefill"], launches=0,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+
+
+def family_kernels_phase(dev) -> None:
+    """(i0) the attention kernels at head dim 256: the paged pair at
+    paligemma-3b's round (``paged_dim_rows``) and ``flash_prefill`` at
+    Hq 8, Hkv 1, 2048 tokens, causal (``flash_case_row``). Logged rows:
+    the kernels' line keeps the qwen2-1.5b shapes."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+    timer = Timer(dev)
+    paged_dim_rows(dev, "(i0) paligemma", PALI_HEADS, g, timer)
+    flash_case_row(dev, g, timer, "(i0) paligemma causal", 1, 8, 1, 2048,
+                   2048, 256, {})
 
 
 def family_trace(cfg, params, dev, fused: bool) -> dict:
@@ -2478,14 +2574,18 @@ def free_device() -> None:
     torch.cuda.empty_cache()
 
 
-def f32_consuming(tree: dict) -> dict:
-    """``tree``'s f32 twin, each leaf dropped from ``tree`` as its copy is
-    made, so that the two never coexist whole (phi3.5-moe's 8 layers are
-    21 GB in bf16 and 43 GB in f32)."""
+def f32_consuming(tree):
+    """``tree``'s f32 twin, each leaf dropped from ``tree`` (a dict, or
+    the ``layers_pre`` list) as its copy is made, so that the two never
+    coexist whole (phi3.5-moe's 8 layers are 21 GB in bf16 and 43 GB in
+    f32)."""
+    if isinstance(tree, list):
+        return [f32_consuming(tree.pop(0)) for _ in range(len(tree))]
     out = {}
     for k in list(tree):
         v = tree.pop(k)
-        out[k] = f32_consuming(v) if isinstance(v, dict) else v.float()
+        out[k] = f32_consuming(v) if isinstance(v, (dict, list)) \
+            else v.float()
         del v
     return out
 
@@ -2706,65 +2806,14 @@ FAMILY_FLASH_CASES = [  # tag, B, Hq, Hkv, Sq, Skv, D, options
 ]
 
 
-def sdpa_backend(q, k, v, mask) -> str:
-    """The SDPA backend PyTorch's dispatcher picks for this call."""
-    from torch.nn.attention import SDPBackend
-    try:
-        return SDPBackend(int(torch._fused_sdp_choice(
-            q, k, v, attn_mask=mask, enable_gqa=True))).name
-    except (AttributeError, TypeError, RuntimeError, ValueError) as e:
-        return f"not determined ({type(e).__name__})"
-
-
 def family_flash_phase(dev) -> None:
     """(j0) ``flash_prefill`` at the hybrid's and the encdec family's
-    shapes in both types against its plain version (bf16 also against
-    the f32 plain version on the same inputs); each bf16 case timed
-    beside its plain version, SDPA (an explicit boolean mask at the
-    window; the backend the dispatcher picks is logged) and its bound.
-    Logged rows: the kernels' line keeps the qwen2-1.5b shapes."""
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_prefill import flash_prefill
-    F = torch.nn.functional
+    shapes (``flash_case_row``). Logged rows: the kernels' line keeps
+    the qwen2-1.5b shapes."""
     g = torch.Generator(device=dev).manual_seed(SEED + 30)
     timer = Timer(dev)
-    for tag, B, Hq, Hkv, Sq, Skv, D, kw in FAMILY_FLASH_CASES:
-        for dtype in (torch.float32, torch.bfloat16):
-            name = str(dtype)[6:]
-            q = torch.randn(B, Hq, Sq, D, generator=g, device=dev).to(dtype)
-            k, v = (torch.randn(B, Hkv, Skv, D, generator=g, device=dev)
-                    .to(dtype) for _ in range(2))
-            got = flash_prefill(q, k, v, **kw)
-            err, ok = allclose_err(got, ref.flash_prefill_ref(q, k, v, **kw),
-                                   TOL[dtype])
-            if dtype == torch.bfloat16:
-                e32, ok32 = allclose_err(got, ref.flash_prefill_ref(
-                    q.float(), k.float(), v.float(), **kw), TOL[dtype])
-                err, ok = max(err, e32), ok and ok32
-            torch.cuda.synchronize()
-            log(f"[family] (j0) {name} flash_prefill {tag} (B={B} Hq={Hq} "
-                f"Hkv={Hkv} Sq={Sq} Skv={Skv} D={D} {kw}): max_abs_err "
-                f"{err} (tol {TOL[dtype]})")
-            check(torch.isfinite(got).all().item() and ok,
-                  f"(j0) flash_prefill {name} {tag}: {err}")
-            if dtype != torch.bfloat16:
-                continue
-            causal = kw.get("causal", True)
-            window = kw.get("window")
-            mask = None
-            if window is not None:
-                qp = torch.arange(Sq, device=dev)[:, None]
-                kp = torch.arange(Skv, device=dev)[None, :]
-                mask = (kp <= qp) & (qp - kp < window)
-            ms = timer(lambda: flash_prefill(q, k, v, **kw))
-            plain_ms = timer(lambda: ref.flash_prefill_ref(q, k, v, **kw))
-            lib_ms = timer(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, enable_gqa=True))
-            bound_ms, bound_by = flash_bound(q, k, window, 0, causal)
-            log(f"[family] (j0) flash_prefill bf16 {tag}: {ms:.4f} ms "
-                f"(plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms on "
-                f"{sdpa_backend(q, k, v, mask)}, bound {bound_ms:.5f} ms "
-                f"by {bound_by})")
+    for tag, *case in FAMILY_FLASH_CASES:
+        flash_case_row(dev, g, timer, f"(j0) {tag}", *case)
 
 
 def hybrid_phase(dev, add) -> None:
@@ -2915,6 +2964,261 @@ def whisper_phase(dev, add) -> None:
     del params, p32
     free_device()
     log(f"[encdec] phase (j2): {time.perf_counter() - t0:.1f} s")
+
+
+# ======================================================================
+# (k) head dims 80 and 192, and multi-head latent attention
+# ======================================================================
+# the published heads the kernels take at head dims 192 and 80
+NEMOTRON_HEADS = dict(Hq=96, Hkv=8, D=192)
+DANUBE_HEADS = dict(Hq=32, Hkv=8, D=80)
+# tag, the kernels' row it gives (the main paths' shapes), B, Hq, Hkv,
+# Sq, Skv, D, options, V's columns
+K0_FLASH_CASES = [
+    ("(k0) nemotron-4 causal", None, 1, 96, 8, 2048, 2048, 192, {}, None),
+    # MLA's prefill: q/k at nope 128 + rope 64, every head its own KV
+    # head, V's 128 columns padded with zeros to 192
+    ("(k0) deepseek-v2 MLA", "flash_prefill, D 192", 1, 128, 128, 2048,
+     2048, 192, {}, 128),
+    *((f"(k0) h2o-danube window S={S}",
+       "flash_prefill, D 80" if S == 5000 else None, 1, 32, 8, S, S, 80,
+       dict(window=4096), None) for S in (4095, 4096, 4097, 5000)),
+]
+# the depth cuts of the two models that do not fit the card whole (all
+# 60 layers of deepseek-v2 are ~472 GB of bf16 weights, all 96 of
+# nemotron-4 ~680 GB); their f32 twins, held to B = 1, keep fewer
+DEEPSEEK_LAYERS, DEEPSEEK_F32_LAYERS = 6, 2
+NEMOTRON_LAYERS, NEMOTRON_F32_LAYERS = 4, 1
+
+
+def dim_row(row, D) -> dict:
+    """A kernel row under the name of its head dim's instantiation."""
+    return dict(row, name=f"{row['name']}, D {D}")
+
+
+def head_dim_kernels_phase(dev) -> dict:
+    """(k0) the paged pair at nemotron-4's heads (D 192, G 12) and at
+    h2o-danube's (D 80, G 4) on trace (b)'s round; ``flash_prefill``
+    causal at nemotron-4's heads, at MLA's (G 1, padded V) and windowed
+    at h2o-danube's around and past the 4096 window. Returns the rows of
+    the dims the main paths launch: the D 192 paged pair, MLA's D 192
+    prefill and the D 80 window at S 5000."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 60)
+    timer = Timer(dev)
+    rows = {}
+    for kname, r in paged_dim_rows(dev, "(k0) nemotron-4", NEMOTRON_HEADS,
+                                   g, timer).items():
+        rows[f"{kname}, D 192"] = dim_row(r, 192)
+    paged_dim_rows(dev, "(k0) h2o-danube", DANUBE_HEADS, g, timer)
+    for tag, row, *case, v_cols in K0_FLASH_CASES:
+        r = flash_case_row(dev, g, timer, tag, *case, v_cols=v_cols)
+        if row:
+            rows[row] = dim_row(r, case[5])
+    return rows
+
+
+def deepseek_phase(dev, add) -> dict:
+    """(k1) deepseek-v2-236b at full width on its first DEEPSEEK_LAYERS
+    of 60 layers (layer 0 dense, d_ff 12288; then moe layers of 160
+    routed experts top-6 and 2 shared; MLA in every layer), bf16, on the
+    single-turn engine: 4 slots at capacity 4096, prompts of 2048, 1171,
+    397 and 64 tokens, 32 tokens each; the streams against B = 1
+    (logged) and the longest prefill's logits against the plain
+    versions'. Then its f32 twin on the first DEEPSEEK_F32_LAYERS (the
+    dense layer and one moe layer) on the same trace, held to B = 1 and
+    to the plain versions in both types. Returns the launch counts of
+    both runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    free_device()
+    t0 = time.perf_counter()
+    full = get_config("deepseek-v2-236b")
+    cfg = full.replace(num_layers=DEEPSEEK_LAYERS)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    m, e = cfg.mla, cfg.moe
+    attn, moe = params["layers"]["attn"], params["layers"]["moe"]
+    check(cfg.d_model == 5120 and cfg.num_heads == 128
+          and m.kv_lora_rank == 512 and m.q_lora_rank == 1536
+          and m.nope_head_dim + m.rope_head_dim == 192
+          and m.v_head_dim == 128 and e.num_experts == 160 and e.top_k == 6
+          and e.num_shared_experts == 2
+          and len(params["layers_pre"]) == 1
+          and params["layers_pre"][0]["mlp"]["w_up"].shape == (5120, 12288)
+          and attn["w_uk"].shape == (DEEPSEEK_LAYERS - 1, 512, 128, 128)
+          and moe["w_up"].shape == (DEEPSEEK_LAYERS - 1, 160, 5120, 1536)
+          and moe["w_up"].dtype == torch.bfloat16
+          and moe["router"].dtype == torch.float32
+          and params["unembed"].shape == (5120, 102400),
+          "not full-width deepseek-v2-236b")
+    del attn, moe
+    log(f"[mla] {cfg.name}: {DEEPSEEK_LAYERS} of {full.num_layers} layers "
+        f"d={cfg.d_model}, {cfg.num_heads} heads, MLA kv_lora "
+        f"{m.kv_lora_rank} q_lora {m.q_lora_rank} nope {m.nope_head_dim} "
+        f"rope {m.rope_head_dim} v {m.v_head_dim}; {e.num_experts} experts "
+        f"top-{e.top_k} + {e.num_shared_experts} shared of d_ff "
+        f"{e.d_ff_expert}; {n / 1e9:.3f} B parameters in bf16 "
+        f"({full.num_params() / 1e9:.1f} B in all {full.num_layers}), "
+        f"random weights (seed {SEED}) in {time.perf_counter() - t0:.1f} s;"
+        f" {torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    rng = np.random.default_rng(SEED + 61)
+    prompts = prompts_for(cfg, rng, [2048, 1171, 397, 64])
+    out, counts = main_path("(k1) deepseek-v2 bf16 single-turn",
+                            single_turn_serve, cfg, params, dev, prompts,
+                            32, 4096)
+    add(counts, {"flash_prefill": len(prompts) * DEEPSEEK_LAYERS})
+    total = dict(counts)
+    # an f32 copy of these six layers would not fit beside them
+    single_turn_check(cfg, params, dev, prompts, out, 32, 4096, hold=False,
+                      types=(torch.bfloat16,))
+    c32, cut = first_layers(cfg, params, DEEPSEEK_F32_LAYERS)
+    c32 = c32.replace(dtype="float32", param_dtype="float32")
+    del params
+    free_device()
+    p32 = f32_consuming(cut)
+    free_device()
+    out, counts = main_path("(k1) deepseek-v2 f32 single-turn",
+                            single_turn_serve, c32, p32, dev, prompts, 32,
+                            4096)
+    add(counts, {"flash_prefill": len(prompts) * DEEPSEEK_F32_LAYERS})
+    single_turn_check(c32, p32, dev, prompts, out, 32, 4096)
+    del p32
+    free_device()
+    log(f"[mla] phase (k1): {time.perf_counter() - t0:.1f} s")
+    return {k: total[k] + counts[k] for k in counts}
+
+
+def nemotron_phase(dev, add) -> dict:
+    """(k2) nemotron-4-340b at full width (d 18432, 96 query heads on 8
+    KV heads of 192, squared_relu of d_ff 73728, vocab 256000, untied)
+    on its first NEMOTRON_LAYERS of 96 layers, bf16, on both planes of
+    trace (b) (its streams against B = 1 and across the planes logged),
+    then its f32 twin on the first NEMOTRON_F32_LAYERS on both planes,
+    held to B = 1 (so the planes agree). Returns the launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    free_device()
+    t0 = time.perf_counter()
+    full = get_config("nemotron-4-340b")
+    cfg = full.replace(num_layers=NEMOTRON_LAYERS)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    lay = params["layers"]
+    check(cfg.d_model == 18432 and cfg.resolved_head_dim == 192
+          and cfg.num_heads == 96 and cfg.num_kv_heads == 8
+          and cfg.mlp_kind == "squared_relu"
+          and lay["mlp"]["w_up"].shape == (NEMOTRON_LAYERS, 18432, 73728)
+          and lay["attn"]["wq"].shape == (NEMOTRON_LAYERS, 18432, 96, 192)
+          and params["unembed"].shape == (18432, 256000)
+          and params["embed"].dtype == torch.bfloat16,
+          "not full-width nemotron-4-340b")
+    del lay
+    log(f"[family] {cfg.name}: {NEMOTRON_LAYERS} of {full.num_layers} "
+        f"layers d={cfg.d_model} heads {cfg.num_heads}/{cfg.num_kv_heads} "
+        f"hd {cfg.resolved_head_dim}, {n / 1e9:.3f} B parameters in bf16 "
+        f"({full.num_params() / 1e9:.1f} B in all {full.num_layers}), "
+        f"random weights (seed {SEED}) in {time.perf_counter() - t0:.1f} s;"
+        f" {torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    planes, counts = main_path("(k2) nemotron-4 bf16", both_planes, cfg,
+                               params, dev)
+    add(counts, {})
+    family_counts_check("(k2) bf16", counts, cfg, planes)
+    total = dict(counts)
+    b1_agreement("(k2) nemotron-4 bf16", cfg, params, dev, planes)
+    c32, cut = first_layers(cfg, params, NEMOTRON_F32_LAYERS)
+    c32 = c32.replace(dtype="float32", param_dtype="float32")
+    del params
+    free_device()
+    p32 = f32_consuming(cut)
+    free_device()
+    planes, counts = main_path("(k2) nemotron-4 f32", both_planes, c32, p32,
+                               dev)
+    add(counts, {})
+    family_counts_check("(k2) f32", counts, c32, planes)
+    same = b1_agreement("(k2) nemotron-4 f32", c32, p32, dev, planes)
+    check(all(n == 8 for n in same.values()),
+          f"(k2) f32 streams differ from B = 1: {same}")
+    del p32
+    free_device()
+    log(f"[family] phase (k2): {time.perf_counter() - t0:.1f} s")
+    return {k: total[k] + counts[k] for k in counts}
+
+
+def danube_phase(dev, add) -> dict:
+    """(k3) h2o-danube-1.8b whole (24 layers, d 2560, 32 query heads on 8
+    KV heads of 80, a 4096-token window, untied) on the single-turn
+    engine: 4 slots at capacity 8192 (a ring of 4096), prompts of 5000,
+    4097, 4096 and 1171 tokens, 32 tokens each, in bf16 (streams against
+    B = 1 logged) and in its f32 twin (held to B = 1); the longest
+    prefill's logits against the plain versions' in both types. Returns
+    the launch counts of both runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import cache_window, init_params
+    free_device()
+    t0 = time.perf_counter()
+    cfg = get_config("h2o-danube-1.8b")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    check(cfg.num_layers == 24 and cfg.d_model == 2560
+          and cfg.resolved_head_dim == 80 and cfg.num_kv_heads == 8
+          and cfg.sliding_window == 4096
+          and cache_window(cfg, 8192) == 4096
+          and params["layers"]["attn"]["wq"].shape == (24, 2560, 32, 80)
+          and params["embed"].dtype == torch.bfloat16,
+          "not full-width h2o-danube-1.8b")
+    log(f"[family] {cfg.name}: {cfg.num_layers} layers d={cfg.d_model} "
+        f"heads {cfg.num_heads}/{cfg.num_kv_heads} hd "
+        f"{cfg.resolved_head_dim}, window {cfg.sliding_window}, "
+        f"{n / 1e9:.3f} B parameters in bf16, random weights (seed {SEED})")
+    rng = np.random.default_rng(SEED + 62)
+    prompts = prompts_for(cfg, rng, [5000, 4097, 4096, 1171])
+    total = {}
+    c32, p32 = f32_twin(cfg, params)
+    for c, p in ((cfg, params), (c32, p32)):
+        name = str(c.activation_dtype())[6:]
+        out, counts = main_path(f"(k3) h2o-danube {name} single-turn",
+                                single_turn_serve, c, p, dev, prompts, 32,
+                                8192)
+        add(counts, {"flash_prefill": len(prompts) * cfg.num_layers})
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        single_turn_check(c, p, dev, prompts, out, 32, 8192,
+                          hold=c is c32)
+    del params, p32
+    free_device()
+    log(f"[family] phase (k3): {time.perf_counter() - t0:.1f} s")
+    return total
+
+
+def qwen3_phase(dev, add) -> None:
+    """(k4) qwen3-4b whole (36 layers, ``qk_norm``, head dim 128 > d /
+    heads) in f32 on both planes of trace (b), held to B = 1."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    free_device()
+    t0 = time.perf_counter()
+    cfg = get_config("qwen3-4b").replace(dtype="float32",
+                                         param_dtype="float32")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+    check(cfg.num_layers == 36 and cfg.qk_norm
+          and cfg.resolved_head_dim == 128
+          and params["embed"].dtype == torch.float32, "not qwen3-4b in f32")
+    planes, counts = main_path("(k4) qwen3-4b f32", both_planes, cfg, params,
+                               dev)
+    add(counts, {})
+    family_counts_check("(k4) f32", counts, cfg, planes)
+    same = b1_agreement("(k4) qwen3-4b f32", cfg, params, dev, planes)
+    check(all(n == 8 for n in same.values()),
+          f"(k4) f32 streams differ from B = 1: {same}")
+    del params
+    free_device()
+    log(f"[family] phase (k4): {time.perf_counter() - t0:.1f} s")
 
 
 def cast_params(tree, dtype, parent=None, key=None):
@@ -3106,11 +3410,29 @@ def main() -> int:
     hybrid_phase(dev, add)
     whisper_phase(dev, add)
     log(f"[family] phase (j): {time.perf_counter() - t_j:.1f} s")
+    # (k) head dims 192 and 80, and the mla family: the kernels at those
+    # dims, then each model's paths with their own counts; the rows of
+    # each new dim take the launches of the paths that run at it
+    t_k = time.perf_counter()
+    dim_rows = head_dim_kernels_phase(dev)
+    k1 = deepseek_phase(dev, add)
+    k2 = nemotron_phase(dev, add)
+    k3 = danube_phase(dev, add)
+    qwen3_phase(dev, add)
+    for name, n in (("flash_prefill, D 192", k1["flash_prefill"]),
+                    ("paged_prefill_attention, D 192",
+                     k2["paged_prefill_attention"]),
+                    ("paged_attention, D 192", k2["paged_attention"]),
+                    ("flash_prefill, D 80", k3["flash_prefill"])):
+        check(n > 0, f"{name} never launched on a main path")
+        dim_rows[name]["launches"] = n
+    log(f"[family] phase (k): {time.perf_counter() - t_k:.1f} s")
     for name, n in total.items():
         check(n > 0, f"{name} never launched on a main path")
         rows[name]["launches"] = n
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [rows[n] for n in SOURCES]}))
+    print(json.dumps({"kernels": [rows[n] for n in SOURCES]
+                      + list(dim_rows.values())}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

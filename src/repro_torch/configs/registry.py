@@ -222,8 +222,7 @@ def list_configs() -> list:
 def _ensure_loaded() -> None:
     if _REGISTRY:
         return
-    # every config of the JAX package, as data; the families the port
-    # does not serve yet (mla, hybrid, encdec) raise in ``init_params``
+    # every config of the JAX package, as data
     from repro_torch.configs import (  # noqa: F401
         whisper_tiny, h2o_danube_1_8b, qwen3_4b, nemotron_4_340b,
         qwen2_1_5b, recurrentgemma_9b, mamba2_1_3b, deepseek_v2_236b,

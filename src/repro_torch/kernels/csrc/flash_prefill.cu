@@ -36,7 +36,9 @@
 // - bfloat16 (`flash_prefill_bf16`): FlashAttention-2 on the tensor cores.
 //   Four warps each own 16 of the block's 64 rows; QK^T and PV are
 //   mma.sync m16n8k16 (bf16 in, f32 accumulators) fed by ldmatrix (.trans
-//   for V) from XOR-swizzled shared tiles. Q's fragments stay in registers
+//   for V) from XOR-swizzled shared tiles (rows padded to an odd count
+//   of 16-byte chunks where a row's chunks are no whole groups of 8: D 80,
+//   mma::Tile). Q's fragments stay in registers
 //   for the whole walk; the scores, the online-softmax statistics (m, l)
 //   and the output accumulator stay in f32 registers. P is rounded to bf16
 //   in registers to become the A operand of PV: the one rounding the f32
@@ -256,8 +258,8 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 constexpr size_t bf16_smem_bytes() {
-  return ((size_t)kMmaRows * D + 2 * (size_t)kStages * kMmaKeys * D) *
-         sizeof(__nv_bfloat16);
+  return ((size_t)kMmaRows + 2 * (size_t)kStages * kMmaKeys) *
+         mma::Tile<D>::STRIDE * sizeof(__nv_bfloat16);
 }
 
 template <int D>
@@ -274,16 +276,23 @@ flash_prefill_bf16(const __nv_bfloat16* __restrict__ q,
   constexpr int KS = D / 16;        // k-steps of QK^T
   constexpr int NT = kMmaKeys / 8;  // n8 tiles of a score tile
   constexpr int DT = D / 8;         // n8 tiles of the output
-  constexpr int RPL = kThreadsMma / CH;           // rows per load pass
-  constexpr int KV_PASSES = kMmaKeys / RPL;       // of a K/V tile
-  // a pass moves RPL rows on: a multiple of 8 keeps the row's swizzle
-  // phase (row & 7); at D = 256 (RPL 4) it alternates between two
-  constexpr int PHASES = RPL % 8 == 0 ? 1 : 8 / RPL;
-  static_assert(RPL % 8 == 0 || 8 % RPL == 0, "a swizzle phase repeats");
+  constexpr int RS = mma::Tile<D>::STRIDE;  // elements of a shared row
+  // The loaders walk a tile's chunks in order: on pass p thread tid
+  // copies chunk i = tid + 128 p, row i / CH, chunk i % CH of the row
+  // (CH is even, so a 64-row tile takes whole passes). After PHASES
+  // passes the walk has moved on PERIOD_ROWS rows, a multiple of 8 that
+  // keeps each row's swizzle phase, so a thread's offsets repeat: 1
+  // phase at D 64 and 128, 2 at D 256, 3 at D 192, 5 at D 80 (where the
+  // 5 passes of a K/V tile are one period)
+  constexpr int KV_PASSES = kMmaKeys * CH / kThreadsMma;
+  constexpr int Q_PASSES = kMmaRows * CH / kThreadsMma;
+  constexpr int PHASES = mma::lcm(kThreadsMma, 8 * CH) / kThreadsMma;
+  constexpr int PERIOD_ROWS = PHASES * kThreadsMma / CH;
+  static_assert(CH % 2 == 0 && PERIOD_ROWS % 8 == 0, "whole passes");
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [kMmaRows][D]
-  bf16* ks = qs + kMmaRows * D;                  // [kStages][kMmaKeys][D]
-  bf16* vs = ks + kStages * kMmaKeys * D;        // [kStages][kMmaKeys][D]
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [kMmaRows][RS]
+  bf16* ks = qs + kMmaRows * RS;                 // [kStages][kMmaKeys][RS]
+  bf16* vs = ks + kStages * kMmaKeys * RS;       // [kStages][kMmaKeys][RS]
 
   const int b = blockIdx.x;
   const int h = blockIdx.y;
@@ -294,14 +303,15 @@ flash_prefill_bf16(const __nv_bfloat16* __restrict__ q,
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
 
-  // each thread copies chunk `lc` of rows lr, lr + RPL, ...
-  const int lr = tid / CH, lc = tid % CH;
-  for (int p = 0; p < kMmaRows / RPL; ++p) {
-    const int rr = lr + p * RPL, r = r0 + rr;
+#pragma unroll
+  for (int p = 0; p < Q_PASSES; ++p) {
+    const int i = tid + p * kThreadsMma, rr = i / CH, c = i % CH;
+    const int r = r0 + rr;
     const bool ok = r < rows;
     const int t = ok ? r / G : 0, g = ok ? r % G : 0;
-    const bf16* src = q + (((size_t)b * Hq + h * G + g) * Sq + t) * D + lc * 8;
-    mma::cp_async16(mma::smem_addr(qs + mma::swz<D>(rr, lc)), src, ok);
+    const bf16* src =
+        q + (((size_t)b * Hq + h * G + g) * Sq + t) * D + c * 8;
+    mma::cp_async16(mma::smem_addr(qs + mma::swz<D>(rr, c)), src, ok);
   }
 
   // the KV tiles any row of this block can see
@@ -314,25 +324,30 @@ flash_prefill_bf16(const __nv_bfloat16* __restrict__ q,
   const int n_tiles =
       k_end > k_begin ? (k_end - k_begin + kMmaKeys - 1) / kMmaKeys : 0;
 
-  const size_t kv_base = ((size_t)b * Hkv + h) * Skv * D + lc * 8;
-  // the thread's chunk in a stage, per swizzle phase, less the rows the
-  // passes before it moved on (computed once)
+  const size_t kv_base = ((size_t)b * Hkv + h) * Skv * D;
+  // the thread's chunk of a stage in each phase of the walk: its byte
+  // offset in the stage, its row and its column (computed once)
   uint32_t lane_off[PHASES];
+  int lane_row[PHASES], lane_col[PHASES];
 #pragma unroll
-  for (int i = 0; i < PHASES; ++i)
-    lane_off[i] = (mma::swz<D>(lr + i * RPL, lc) - i * RPL * D) *
-                  sizeof(bf16);
+  for (int ph = 0; ph < PHASES; ++ph) {
+    const int i = tid + ph * kThreadsMma;
+    lane_row[ph] = i / CH;
+    lane_col[ph] = (i % CH) * 8;
+    lane_off[ph] = mma::swz<D>(i / CH, i % CH) * sizeof(bf16);
+  }
   const uint32_t ks0 = mma::smem_addr(ks), vs0 = mma::smem_addr(vs);
   auto load_kv = [&](int tile, int stage) {
-    const int key0 = k_begin + tile * kMmaKeys + lr;
-    const uint32_t so = stage * kMmaKeys * D * sizeof(bf16);
+    const int key0 = k_begin + tile * kMmaKeys;
+    const uint32_t so = stage * kMmaKeys * RS * sizeof(bf16);
 #pragma unroll
     for (int p = 0; p < KV_PASSES; ++p) {
-      const int key = key0 + p * RPL;
+      const int ph = p % PHASES, moved = p / PHASES * PERIOD_ROWS;
+      const int key = key0 + lane_row[ph] + moved;
       const bool ok = key < Skv;
-      const size_t off = kv_base + (size_t)(ok ? key : 0) * D;
-      const uint32_t o =
-          so + lane_off[p % PHASES] + p * RPL * D * sizeof(bf16);
+      const size_t off =
+          kv_base + (size_t)(ok ? key : 0) * D + lane_col[ph];
+      const uint32_t o = so + lane_off[ph] + moved * RS * sizeof(bf16);
       mma::cp_async16(ks0 + o, k + off, ok);
       mma::cp_async16(vs0 + o, v + off, ok);
     }
@@ -381,8 +396,8 @@ flash_prefill_bf16(const __nv_bfloat16* __restrict__ q,
       }
     }
     const int k0 = k_begin + j * kMmaKeys;
-    const bf16* kt = ks + stage * kMmaKeys * D;
-    const bf16* vt = vs + stage * kMmaKeys * D;
+    const bf16* kt = ks + stage * kMmaKeys * RS;
+    const bf16* vt = vs + stage * kMmaKeys * RS;
 
     // S = Q K^T: ldmatrix x4 gives the B fragments of two n8 tiles
     float s[NT][4];
@@ -493,13 +508,15 @@ flash_prefill_bf16(const __nv_bfloat16* __restrict__ q,
           __floats2bfloat162_rn(o[dt][2 * i] * inv, o[dt][2 * i + 1] * inv);
   }
   __syncthreads();
-  for (int p = 0; p < kMmaRows / RPL; ++p) {
-    const int rr = lr + p * RPL, r = r0 + rr;
-    if (r >= rows) break;
+#pragma unroll
+  for (int p = 0; p < Q_PASSES; ++p) {
+    const int i = tid + p * kThreadsMma, rr = i / CH, c = i % CH;
+    const int r = r0 + rr;
+    if (r >= rows) break;  // a thread's rows grow with p
     const int t = r / G, g = r % G;
     *reinterpret_cast<uint4*>(
-        out + (((size_t)b * Hq + h * G + g) * Sq + t) * D + lc * 8) =
-        *reinterpret_cast<const uint4*>(qs + mma::swz<D>(rr, lc));
+        out + (((size_t)b * Hq + h * G + g) * Sq + t) * D + c * 8) =
+        *reinterpret_cast<const uint4*>(qs + mma::swz<D>(rr, c));
   }
 }
 
@@ -552,8 +569,11 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 // dtype: 0 = float32, 1 = bfloat16; window <= 0 means none. Returns
 // cudaGetLastError() after the launch (0 on success). The head dims a
 // caller launches: 128 (qwen2-1.5b, qwen3-4b, phi3.5-moe), 256
-// (paligemma-3b: 137 KB of shared memory in f32, 160 KB in bf16) and 64
-// for the small card test; add others with the configs that need them.
+// (paligemma-3b, recurrentgemma-9b: 137 KB of shared memory in f32, 160
+// KB in bf16), 192 (nemotron-4-340b, and deepseek-v2's MLA prefill at
+// nope 128 + rope 64: 105 KB in f32, 120 KB in bf16), 80
+// (h2o-danube-1.8b: rows padded to 88 bf16 elements, 55 KB in bf16) and
+// 64 (whisper-tiny); add others with the configs that need them.
 extern "C" int flash_prefill_launch(int dtype, const void* q, const void* k,
                                     const void* v, void* out, int B, int Hq,
                                     int Hkv, int Sq, int Skv, int D,
@@ -563,10 +583,14 @@ extern "C" int flash_prefill_launch(int dtype, const void* q, const void* k,
 #define FP_ARGS q, k, v, out, B, Hq, Hkv, Sq, Skv, causal, window, q_offset, \
                 scale, s
   if (dtype == 0 && D == 64) return (int)launch_f32<64>(FP_ARGS);
+  if (dtype == 0 && D == 80) return (int)launch_f32<80>(FP_ARGS);
   if (dtype == 0 && D == 128) return (int)launch_f32<128>(FP_ARGS);
+  if (dtype == 0 && D == 192) return (int)launch_f32<192>(FP_ARGS);
   if (dtype == 0 && D == 256) return (int)launch_f32<256>(FP_ARGS);
   if (dtype == 1 && D == 64) return (int)launch_bf16<64>(FP_ARGS);
+  if (dtype == 1 && D == 80) return (int)launch_bf16<80>(FP_ARGS);
   if (dtype == 1 && D == 128) return (int)launch_bf16<128>(FP_ARGS);
+  if (dtype == 1 && D == 192) return (int)launch_bf16<192>(FP_ARGS);
   if (dtype == 1 && D == 256) return (int)launch_bf16<256>(FP_ARGS);
 #undef FP_ARGS
   return (int)cudaErrorInvalidValue;

@@ -81,15 +81,42 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// Element offset of 16-byte chunk `c` of row `row` in a [rows][D] tile
-// of EPC-element chunks (8 for bf16, 4 for f32) whose chunks are
-// XOR-swizzled by the row, so the 8 row addresses of one ldmatrix matrix
-// (or 8 rows read at one chunk) fall in distinct banks.
+// The shared layout of a [rows][D] tile of 16-byte chunks of EPC
+// elements (8 for bf16, 4 for f32), laid out so that the 8 row addresses
+// of one ldmatrix matrix (or 8 rows read at one chunk) fall in distinct
+// banks:
+// - when a row's CH chunks come in whole groups of 8, or are one power
+//   of two below 8, rows are D elements apart and chunk c of row r sits
+//   at chunk c ^ (r & 7) (an XOR swizzle inside each group of 8);
+// - otherwise (D 80: 10 chunks in bf16, 20 in f32) the XOR would move a
+//   tail chunk past the row, so a row is padded to an odd number of
+//   chunks (CH + 1) and not swizzled: 8 rows read at one chunk then
+//   start at 8 distinct 16-byte phases of the 128-byte bank line.
+template <int D, int EPC = 8>
+struct Tile {
+  static constexpr int CH = D / EPC;
+  static constexpr bool XOR =
+      CH % 8 == 0 || (CH < 8 && (CH & (CH - 1)) == 0);
+  static constexpr int MASK = (CH < 8 ? CH : 8) - 1;
+  static constexpr int STRIDE = (XOR ? CH : (CH | 1)) * EPC;  // a row
+};
+
+// Element offset of chunk `c` of row `row` in such a tile.
 template <int D, int EPC = 8>
 __device__ __forceinline__ int swz(int row, int c) {
-  constexpr int CH = D / EPC;
-  constexpr int MASK = (CH < 8 ? CH : 8) - 1;
-  return row * D + (c ^ (row & MASK)) * EPC;
+  using L = Tile<D, EPC>;
+  return row * L::STRIDE + (L::XOR ? c ^ (row & L::MASK) : c) * EPC;
+}
+
+// The smallest multiple of both a and b (for the loaders' periods).
+__host__ __device__ constexpr int lcm(int a, int b) {
+  int x = a, y = b;
+  while (y) {
+    const int t = x % y;
+    x = y;
+    y = t;
+  }
+  return a / x * b;
 }
 
 }  // namespace mma

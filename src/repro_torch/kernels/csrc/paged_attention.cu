@@ -47,7 +47,9 @@
 //   none exits, so a decode row costs one block per KV head.
 // - Keys come in tiles of 16 through a four-stage cp.async ring (the next
 //   three tiles' K/V in flight while one computes) into XOR-swizzled
-//   shared tiles; the span's block-table entries are read into shared
+//   shared tiles (padded rows at D 80, mma::Tile), the block's threads
+//   walking a tile's 16-byte chunks in order whatever the row's count;
+//   the span's block-table entries are read into shared
 //   memory once, before the first load. Any page size works: each key row
 //   is addressed through its own page.
 // - Each warp holds its scores, the online softmax (m, l) and the output
@@ -243,10 +245,16 @@ struct TileMath<float, D> {  // CUDA cores, f32 FMAs in a fixed order
   }
 };
 
+// A shared row of T at head dim D: D elements, or padded (mma::Tile)
+template <typename T, int D>
+__host__ __device__ constexpr int row_stride() {
+  return mma::Tile<D, 16 / sizeof(T)>::STRIDE;
+}
+
 template <typename T, int D>
 constexpr size_t smem_bytes() {
-  return ((size_t)kRows * D + 2 * (size_t)kStages * kTileKeys * D) *
-         sizeof(T);
+  return ((size_t)kRows + 2 * (size_t)kStages * kTileKeys) *
+         row_stride<T, D>() * sizeof(T);
 }
 
 // DECODE: `starts` holds seq_lens (q_start = seq_len - 1, q_lens = 1);
@@ -269,12 +277,13 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   constexpr int EPC = 16 / sizeof(T);  // elements of a 16-byte chunk
   constexpr int CH = D / EPC;          // chunks of a row
   constexpr int DT = D / 8;            // n8 tiles of the output
+  constexpr int RS = row_stride<T, D>();  // elements of a shared row
   extern __shared__ __align__(128) unsigned char smem_raw[];
   // table entries a span reaches: at most kSpanKeys / page + 1
   __shared__ int tbl[kSpanKeys + 1];
-  T* qs = reinterpret_cast<T*>(smem_raw);  // [kRows][D]
-  T* ks = qs + kRows * D;                  // [kStages][16][D]
-  T* vs = ks + kStages * kTileKeys * D;    // [kStages][16][D]
+  T* qs = reinterpret_cast<T*>(smem_raw);  // [kRows][RS]
+  T* ks = qs + kRows * RS;                 // [kStages][16][RS]
+  T* vs = ks + kStages * kTileKeys * RS;   // [kStages][16][RS]
 
   const int b = blockIdx.x;
   const int h = blockIdx.y;
@@ -317,27 +326,31 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   __syncthreads();  // the table entries are visible
 
   const int n_tiles = (key_end - key0 + kTileKeys - 1) / kTileKeys;
-  // each thread copies chunk `lc` of key rows lr, lr + RPL, ... of a tile
-  constexpr int RPL = kWarps * 32 / CH;
-  constexpr int PASSES = (kTileKeys + RPL - 1) / RPL;
-  const int lr = tid / CH, lc = tid % CH;
+  // the block walks a tile's chunks in order: on pass p thread tid
+  // copies chunk i = tid + 128 p (key row i / CH, chunk i % CH of it)
+  // while i is inside the tile, whether or not CH divides 128
+  constexpr int CHUNKS = kTileKeys * CH;
+  constexpr int PASSES = (CHUNKS + kWarps * 32 - 1) / (kWarps * 32);
   uint32_t so[PASSES];  // the thread's byte offsets in a stage
 #pragma unroll
-  for (int p = 0; p < PASSES; ++p)
-    so[p] = tile_off<T, D>(lr + p * RPL, lc) * sizeof(T);
+  for (int p = 0; p < PASSES; ++p) {
+    const int i = tid + p * kWarps * 32;
+    so[p] = tile_off<T, D>(i / CH, i % CH) * sizeof(T);
+  }
   const uint32_t ks0 = mma::smem_addr(ks), vs0 = mma::smem_addr(vs);
   auto load_kv = [&](int tile, int stage) {
     const int kb = key0 + tile * kTileKeys;
-    const uint32_t st = stage * kTileKeys * D * sizeof(T);
+    const uint32_t st = stage * kTileKeys * RS * sizeof(T);
 #pragma unroll
     for (int p = 0; p < PASSES; ++p) {
-      const int kk = lr + p * RPL, pos = kb + kk;
-      if (kk >= kTileKeys) break;
+      const int i = tid + p * kWarps * 32;
+      if (i >= CHUNKS) break;
+      const int pos = kb + i / CH;
       const bool ok = pos < key_end;
       size_t off = 0;
       if (ok) {
         const size_t phys = (size_t)tbl[pos / page - p0];
-        off = ((phys * page + pos % page) * Hkv + h) * D + lc * EPC;
+        off = ((phys * page + pos % page) * Hkv + h) * D + i % CH * EPC;
       }
       mma::cp_async16(ks0 + st + so[p], kp + off, ok);
       mma::cp_async16(vs0 + st + so[p], vp + off, ok);
@@ -374,8 +387,8 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     mma::cp_async_commit();
     if (!warp_live) continue;  // uniform across the warp
     if (j == 0) math.load_q(qs, warp, lane);
-    const T* kt = ks + (j % kStages) * kTileKeys * D;
-    const T* vt = vs + (j % kStages) * kTileKeys * D;
+    const T* kt = ks + (j % kStages) * kTileKeys * RS;
+    const T* vt = vs + (j % kStages) * kTileKeys * RS;
 
     float s[2][4];
     math.qk(s, kt, lane);
@@ -475,7 +488,9 @@ paged_merge(const float* __restrict__ o_part,
             const int* __restrict__ q_lens, T* __restrict__ out,
             float* __restrict__ m_out, float* __restrict__ l_out, int B,
             int Q, int Hq, int Hkv, int nspan) {
-  constexpr int EPL = D / 32;  // elements of a row held by each lane
+  // lane l holds columns l, l + 32, ... of a row (D 80 leaves lanes
+  // 16-31 one column fewer)
+  constexpr int EPL = (D + 31) / 32;
   const int G = Hq / Hkv;
   const int rows = G * Q;
   const int w = blockIdx.x * 4 + threadIdx.x / 32;
@@ -485,10 +500,12 @@ paged_merge(const float* __restrict__ o_part,
   const int h = bh % Hkv, b = bh / Hkv;
   const int t = r / G, g = r % G;
   const size_t row_out = ((size_t)b * Q + t) * Hq + h * G + g;
-  T* op = out + row_out * D + lane * EPL;
+  T* op = out + row_out * D + lane;
+  auto in_row = [&](int e) { return D % 32 == 0 || lane + 32 * e < D; };
   if (r >= G * (DECODE ? 1 : q_lens[b])) {
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) op[e] = from_f32<T>(0.f);
+    for (int e = 0; e < EPL; ++e)
+      if (in_row(e)) op[32 * e] = from_f32<T>(0.f);
     if (m_out != nullptr && lane == 0) {
       m_out[row_out] = kNegInf;
       l_out[row_out] = 0.f;
@@ -508,13 +525,15 @@ paged_merge(const float* __restrict__ o_part,
     if (ls == 0.f) continue;  // an empty span: weight exactly 0
     const float wgt = exp2f(ml_part[idx * 2] - M);  // m in log2 units
     L += ls * wgt;
-    const float* src = o_part + idx * D + lane * EPL;
+    const float* src = o_part + idx * D + lane;
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) acc[e] += wgt * src[e];
+    for (int e = 0; e < EPL; ++e)
+      if (in_row(e)) acc[e] += wgt * src[32 * e];
   }
   const float denom = fmaxf(L, 1e-30f);
 #pragma unroll
-  for (int e = 0; e < EPL; ++e) op[e] = from_f32<T>(acc[e] / denom);
+  for (int e = 0; e < EPL; ++e)
+    if (in_row(e)) op[32 * e] = from_f32<T>(acc[e] / denom);
   if (m_out != nullptr && lane == 0) {
     m_out[row_out] = L > 0.f ? M * kLn2 : kNegInf;
     l_out[row_out] = L;
@@ -562,20 +581,24 @@ cudaError_t launch(const Args& a) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16. The head dims a caller launches:
-// 128 (qwen2-1.5b, qwen3-4b, phi3.5-moe), 256 (paligemma-3b) and 32 for
-// the small card test; add others with the configs that need them. At
-// D = 256 the same body takes 192 KB of shared memory in f32 (96 KB in
-// bf16), under the 227 KB a block may opt into.
+// 128 (qwen2-1.5b, qwen3-4b, phi3.5-moe), 256 (paligemma-3b), 192
+// (nemotron-4-340b), 80 (h2o-danube-1.8b) and 32 for the small card
+// test; add others with the configs that need them. The same body takes
+// 192 KB of shared memory in f32 at D 256 and 144 KB at D 192 (96 and 72
+// KB in bf16), under the 227 KB a block may opt into.
 template <bool DECODE>
 int dispatch(int dtype, int D, const Args& a) {
+  using bf16 = __nv_bfloat16;
   if (dtype == 0 && D == 32) return (int)launch<float, 32, DECODE>(a);
+  if (dtype == 0 && D == 80) return (int)launch<float, 80, DECODE>(a);
   if (dtype == 0 && D == 128) return (int)launch<float, 128, DECODE>(a);
+  if (dtype == 0 && D == 192) return (int)launch<float, 192, DECODE>(a);
   if (dtype == 0 && D == 256) return (int)launch<float, 256, DECODE>(a);
-  if (dtype == 1 && D == 32) return (int)launch<__nv_bfloat16, 32, DECODE>(a);
-  if (dtype == 1 && D == 128)
-    return (int)launch<__nv_bfloat16, 128, DECODE>(a);
-  if (dtype == 1 && D == 256)
-    return (int)launch<__nv_bfloat16, 256, DECODE>(a);
+  if (dtype == 1 && D == 32) return (int)launch<bf16, 32, DECODE>(a);
+  if (dtype == 1 && D == 80) return (int)launch<bf16, 80, DECODE>(a);
+  if (dtype == 1 && D == 128) return (int)launch<bf16, 128, DECODE>(a);
+  if (dtype == 1 && D == 192) return (int)launch<bf16, 192, DECODE>(a);
+  if (dtype == 1 && D == 256) return (int)launch<bf16, 256, DECODE>(a);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -41,7 +41,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels._build import library
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 128, 256)             # the instantiations in the .cu
+_HEAD_DIMS = (32, 80, 128, 192, 256)    # the instantiations in the .cu
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

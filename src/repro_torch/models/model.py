@@ -1,11 +1,13 @@
 """Model assembly: parameters, embedding, unembedding, the MLP block
 (dense or moe), the whisper encoder, and the ring-cache
-``prefill``/``decode_step`` of every family but mla (those branches of
-the JAX package's ``models/model.py``): dense, moe, vlm, ssm, hybrid
+``prefill``/``decode_step`` of every family (those branches of the JAX
+package's ``models/model.py``): dense, moe, vlm, ssm, hybrid
 (RecurrentGemma's rglru/local-attention pattern) and encdec (whisper's
-decoder over an encoder's output). The vlm family runs its text path:
-the stub modality frontend (``frontend_embeds`` and the prefix-LM mask)
-is not ported.
+decoder over an encoder's output), each attention layer either the
+grouped-query attention or, where the config has ``mla``, multi-head
+latent attention (``models/mla.py``; DeepSeek-V2's moe stack). The vlm
+family runs its text path: the stub modality frontend
+(``frontend_embeds`` and the prefix-LM mask) is not ported.
 
 Parameters are a dict of tensors in the JAX package's pytree layout:
 ``embed``, ``final_norm``, optional ``unembed``, ``layers`` and an
@@ -21,13 +23,17 @@ attention window for sliding-window and local-attention configs);
 ``kv_pos`` tracks absolute positions so masks stay exact after
 wraparound. The hybrid cache holds K/V for its local-attention layers
 only, beside each recurrent layer's f32 state and conv tail; the encdec
-cache holds each layer's cross-attention K/V over the encoder frames.
-The reference builds a new cache functionally; the port writes the
-cache it is given in place and returns it. Prefill attends through the
+cache holds each layer's cross-attention K/V over the encoder frames;
+an mla cache holds each layer's latent ``ckv`` and shared rope key
+``k_rope`` in place of K/V. The reference builds a new cache
+functionally; the port writes the cache it is given in place and
+returns it. Prefill attends through the
 ``flash_prefill`` kernel (causal, with the window where there is one;
-not causal over the encoder frames) and the ssm prefill scans through
-``ssd_scan``; the ring-cache decode attends with the plain
-``gqa_attention``, as the reference does outside any Pallas kernel.
+not causal over the encoder frames; mla's at nope + rope columns with V
+padded to them) and the ssm prefill scans through ``ssd_scan``; the
+ring-cache decode attends with the plain ``gqa_attention`` (mla: the
+absorbed latent products), as the reference does outside any Pallas
+kernel.
 """
 from __future__ import annotations
 
@@ -37,6 +43,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_prefill import flash_prefill
 from repro_torch.models import layers as L
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rg
 from repro_torch.models import ssm as ssm_mod
@@ -59,10 +66,8 @@ def _not_ported(what: str) -> NotImplementedError:
 
 
 def _check_ported(cfg) -> None:
-    """The ring-cache model serves every family; mla attention and the
-    dry run's surrogate attention are not ported."""
-    if cfg.mla is not None:
-        raise _not_ported("mla attention")
+    """The ring-cache model serves every family and both attentions; the
+    dry run's surrogate attention is not ported."""
     if cfg.attention_impl != "einsum":
         raise _not_ported(f"attention_impl={cfg.attention_impl!r}")
 
@@ -70,17 +75,38 @@ def _check_ported(cfg) -> None:
 # ======================================================================
 # parameters
 # ======================================================================
-def _stack(trees):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _stacked(n: int, make):
+    """``n`` layer trees from ``make()``, in order, stacked leaf by leaf
+    into ``[n, ...]`` buffers as each is drawn, so that only one layer's
+    tree lives beside the stack (stacking a list of whole layers would
+    hold every layer twice: 80 GB at deepseek-v2's six layers)."""
+    def alloc(t):
+        if isinstance(t, dict):
+            return {k: alloc(v) for k, v in t.items()}
+        return t.new_empty((n,) + t.shape)
+
+    def put(out, t, i):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                put(out[k], v, i)
+        else:
+            out[i] = t
+
+    out = None
+    for i in range(n):
+        layer = make()
+        if out is None:
+            out = alloc(layer)
+        put(out, layer, i)
+    return out
 
 
 def _dense_layer_init(generator, cfg, dtype, device, *, d_ff=None,
                       moe_layer=False):
     zeros = torch.zeros((cfg.d_model,), dtype=dtype, device=device)
+    attn = mla_mod.mla_init if cfg.mla is not None else L.attn_init
     p = {"ln1": zeros, "ln2": zeros.clone(),
-         "attn": L.attn_init(generator, cfg, dtype, device)}
+         "attn": attn(generator, cfg, dtype, device)}
     if moe_layer:
         p["moe"] = moe_mod.moe_init(generator, cfg, dtype, device)
     else:
@@ -115,7 +141,7 @@ def _xattn_layer_init(generator, cfg, dtype, device):
 
 
 def init_params(cfg, generator: torch.Generator, device):
-    """Random weights for every family but mla, drawn from ``generator``
+    """Random weights for every family, drawn from ``generator``
     (which must live on ``device``) with the reference's schemes. The
     numbers differ from JAX's for the same seed; tests carry JAX's
     weights across with ``params_from_numpy`` instead."""
@@ -140,9 +166,9 @@ def init_params(cfg, generator: torch.Generator, device):
                 _dense_layer_init(generator, cfg, dtype, device,
                                   d_ff=cfg.moe.d_ff_dense)
                 for _ in range(nd)]
-        params["layers"] = _stack([
-            _dense_layer_init(generator, cfg, dtype, device, moe_layer=True)
-            for _ in range(n - nd)])
+        params["layers"] = _stacked(
+            n - nd, lambda: _dense_layer_init(generator, cfg, dtype, device,
+                                              moe_layer=True))
         return params
     if cfg.family == "hybrid":
         params["layers"] = [
@@ -152,19 +178,17 @@ def init_params(cfg, generator: torch.Generator, device):
         return params
     if cfg.family == "encdec":
         enc = cfg.encoder
-        params["layers"] = _stack([
-            _xattn_layer_init(generator, cfg, dtype, device)
-            for _ in range(n)])
+        params["layers"] = _stacked(
+            n, lambda: _xattn_layer_init(generator, cfg, dtype, device))
         params["encoder"] = {
-            "layers": _stack([_dense_layer_init(generator, cfg, dtype,
-                                                device)
-                              for _ in range(enc.num_layers)]),
+            "layers": _stacked(enc.num_layers, lambda: _dense_layer_init(
+                generator, cfg, dtype, device)),
             "final_norm": torch.zeros((enc.d_model or cfg.d_model,),
                                       dtype=dtype, device=device)}
         return params
     layer = _ssm_layer_init if cfg.family == "ssm" else _dense_layer_init
-    params["layers"] = _stack([layer(generator, cfg, dtype, device)
-                               for _ in range(n)])
+    params["layers"] = _stacked(
+        n, lambda: layer(generator, cfg, dtype, device))
     return params
 
 
@@ -293,9 +317,10 @@ def cache_window(cfg, capacity: int) -> int:
 def init_cache(cfg, batch: int, capacity: int, device, *,
                enc_frames: int = 0):
     """An empty decode cache on ``device``: ring buffers of W slots for
-    the attention layers, the conv caches and f32 state of the ssm and
-    rglru layers, and (encdec) the cross-attention K/V over
-    ``enc_frames`` encoder frames."""
+    the attention layers (K/V, or mla's latent ``ckv`` [L, B, W,
+    kv_lora] and rope key ``k_rope`` [L, B, W, rope]), the conv caches
+    and f32 state of the ssm and rglru layers, and (encdec) the
+    cross-attention K/V over ``enc_frames`` encoder frames."""
     _check_ported(cfg)
     dtype = cfg.activation_dtype()
     cache = {"len": torch.zeros((batch,), dtype=torch.int32, device=device)}
@@ -323,9 +348,16 @@ def init_cache(cfg, batch: int, capacity: int, device, *,
         cache["rec_conv"] = torch.zeros(
             (n_rec, batch, cfg.rglru.conv_width - 1, w), dtype=dtype,
             device=device)
-    shape = (n_att, batch, W, cfg.num_kv_heads, hd)
-    cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
-    cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
+    if cfg.mla is not None:
+        m = cfg.mla
+        cache["ckv"] = torch.zeros((n_att, batch, W, m.kv_lora_rank),
+                                   dtype=dtype, device=device)
+        cache["k_rope"] = torch.zeros((n_att, batch, W, m.rope_head_dim),
+                                      dtype=dtype, device=device)
+    else:
+        shape = (n_att, batch, W, cfg.num_kv_heads, hd)
+        cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
+        cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
     cache["kv_pos"] = torch.full((batch, W), -1, dtype=torch.int32,
                                  device=device)
     if cfg.family == "encdec":
@@ -411,7 +443,8 @@ def prefill(cfg, params, tokens, cache, *, seq_lens=None, prefix_len=None,
         def write(buf, new):
             if W == S:
                 # fresh full-capacity cache: position-aligned, no scatter
-                buf.copy_(torch.where(valid[..., None, None], new,
+                keep = valid.reshape(valid.shape + (1,) * (new.dim() - 2))
+                buf.copy_(torch.where(keep, new,
                                       torch.zeros((), dtype=new.dtype,
                                                   device=dev)))
             else:
@@ -432,6 +465,13 @@ def prefill(cfg, params, tokens, cache, *, seq_lens=None, prefix_len=None,
                 cache["rec_h"][ri] = hl
                 x = x + y
                 ri += 1
+            elif cfg.mla is not None:
+                a, (ckv, kr) = mla_mod.mla_forward(lp["attn"], cfg, h,
+                                                   positions, plain=plain)
+                x = x + a
+                write(cache["ckv"][ai], ckv)
+                write(cache["k_rope"][ai], kr)
+                ai += 1
             else:
                 q, k, v = L.attn_project_qkv(lp["attn"], cfg, h, positions)
                 a = _flash(attend, q, k, v, causal=True, window=window)
@@ -512,6 +552,17 @@ def decode_step(cfg, params, tokens, cache, valid=None):
                 cache["rec_h"][ri] = hh
                 x = x + y
                 ri += 1
+            elif cfg.mla is not None:
+                # the latents go into the ring first, then the absorbed
+                # attention reads them with the rest of the ring
+                ckv, kr = mla_mod._project_kv_latent(lp["attn"], cfg, h,
+                                                     q_pos)
+                kc, vc = cache["ckv"][ai], cache["k_rope"][ai]
+                kc[rows, slots] = ckv.to(kc.dtype)
+                vc[rows, slots] = kr.to(vc.dtype)
+                x = x + mla_mod.mla_decode(lp["attn"], cfg, h, q_pos, kc, vc,
+                                           mask)
+                ai += 1
             else:
                 q, k, v = L.attn_project_qkv(lp["attn"], cfg, h, q_pos)
                 kc, vc = cache["k"][ai], cache["v"][ai]

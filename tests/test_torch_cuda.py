@@ -90,10 +90,19 @@ def test_cuda_kernel_options_match_plain(dtype):
     kernel the fused one's Q = 1 case bitwise with the options on."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the H100)")
-    dev, tol = torch.device("cuda"), TOL[dtype]
+    dev = torch.device("cuda")
     q, kp, vp, bt, qs, ql = (torch.from_numpy(a).to(dev) for a in
                              _prefill_case(1, 3, 6, 12, 2, 128, 16, 20))
     q, kp, vp = (x.to(TDT[dtype]) for x in (q, kp, vp))
+    _options_check(q, kp, vp, bt, qs, ql, TOL[dtype])
+
+
+def _options_check(q, kp, vp, bt, qs, ql, tol):
+    """Pages of 16 cut into 2 and 4 stripes: each stripe's kernel call
+    (``pos_stride``, shifted starts, stats) against the plain version,
+    rows that see no key finite with l = 0, ``pos_offset`` equal to the
+    shift bitwise, and the decode kernel the fused one's Q = 1 case
+    bitwise with the options on."""
     for S in (2, 4):
         n = 16 // S
         for s in range(S):
@@ -572,3 +581,97 @@ def test_cuda_flash_prefill_window_and_noncausal(dtype):
         want = tref.flash_prefill_ref(q, k, v, **kw)
         torch.testing.assert_close(got.float(), want.float(),
                                    rtol=TOL[dtype], atol=TOL[dtype])
+
+
+# ======================================================================
+# head dims 80 (h2o-danube-1.8b) and 192 (nemotron-4-340b, MLA prefill)
+# ======================================================================
+HEAD_DIM_PAGED_CASES = [  # B, Q, Hq, Hkv, D, page, ctx
+    (4, 16, 32, 8, 80, 16, [300, 0, 129, 40]),     # h2o-danube's heads
+    (3, 6, 96, 8, 192, 16, [170, 3, 0]),           # nemotron-4's, G 12
+]
+HEAD_DIM_FLASH_CASES = [  # B, Hq, Hkv, Sq, Skv, D, options
+    (1, 32, 8, 200, 200, 80, dict()),
+    (1, 32, 8, 130, 130, 80, dict(window=48)),
+    (2, 32, 8, 77, 141, 80, dict(window=40, q_offset=64)),
+    (1, 6, 6, 70, 130, 80, dict(causal=False)),
+    (1, 96, 8, 70, 70, 192, dict()),
+    (1, 8, 8, 130, 130, 192, dict(window=48)),
+    (1, 16, 16, 33, 97, 192, dict(causal=False)),
+    (1, 16, 16, 150, 150, 192, dict()),            # MLA's G 1
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_head_dims_80_192_match_plain(dtype):
+    """On the card, at head dims 80 (rows padded to an odd count of
+    16-byte chunks) and 192 (whole groups of 8 chunks, 3 loader
+    phases): both paged kernels against their plain versions with
+    several spans a row, the Q = 1 fused kernel bitwise the decode
+    kernel, the sharding options on 2 and 4 stripes, and in bf16 the
+    fused kernel against the f32 split plain version per row with each
+    planted fault breaking that tolerance; ``flash_prefill`` causal,
+    windowed (with an offset) and not causal, lengths no multiple of
+    the tiles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the H100)")
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    tol = TOL[dtype]
+    for B, Q, Hq, Hkv, D, page, ctx in HEAD_DIM_PAGED_CASES:
+        q, kp, vp, bt, qs, ql = _long_case("cuda", TDT[dtype], B, Q, Hq,
+                                           Hkv, D, page, ctx, seed=3)
+        got = paged_prefill_attention(q, kp, vp, bt, qs, ql)
+        want = tref.paged_prefill_attention_ref(q, kp, vp, bt, qs, ql)
+        _valid_close(got.float().cpu(), want.float().cpu(), ql.cpu(), tol)
+        dec = paged_attention(q[:, 0].contiguous(), kp, vp, bt, qs + 1)
+        want_d = tref.paged_attention_ref(q[:, 0].contiguous(), kp, vp, bt,
+                                          qs + 1)
+        torch.testing.assert_close(dec.float(), want_d.float(), rtol=tol,
+                                   atol=tol)
+        one = paged_prefill_attention(q[:, :1].contiguous(), kp, vp, bt, qs,
+                                      torch.ones_like(ql))
+        assert torch.equal(one[:, 0], dec)
+        _options_check(q, kp, vp, bt, qs, ql, tol)
+        if dtype == "bfloat16":
+            f32 = [x.float() for x in (q, kp, vp)]
+            split = tref.paged_prefill_attention_split_ref(*f32, bt, qs, ql)
+            assert _row_scaled_err(got, split, ql) <= REL_TOL
+            for name, bad in _planted_faults(*f32, bt, qs, ql).items():
+                assert _row_scaled_err(bad, split, ql) > REL_TOL, name
+    for B, Hq, Hkv, Sq, Skv, D, kw in HEAD_DIM_FLASH_CASES:
+        q, k, v = (torch.from_numpy(a).to("cuda", TDT[dtype]) for a in
+                   flash_case(0, B, Hq, Hkv, Sq, Skv, D))
+        got = flash_prefill(q, k, v, **kw)
+        for want in (tref.flash_prefill_ref(q, k, v, **kw),
+                     tref.flash_prefill_ref(q.float(), k.float(),
+                                            v.float(), **kw)):
+            torch.testing.assert_close(got.float(), want.float(),
+                                       rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_mla_prefill_matches_plain(dtype):
+    """On the card: multi-head latent attention's prefill at
+    deepseek-v2's head shapes (q/k dim nope 128 + rope 64 = 192, v 128,
+    8 of its 128 heads, G 1) through ``flash_prefill`` with V padded to
+    192, against the plain ``mla_forward``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the H100)")
+    from repro_torch.configs import get_config
+    from repro_torch.models import mla
+    cfg = get_config("deepseek-v2-236b").replace(
+        d_model=512, num_heads=8, num_kv_heads=8, dtype=dtype,
+        param_dtype=dtype)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    params = mla.mla_init(g, cfg, TDT[dtype], "cuda")
+    x = torch.randn(2, 150, cfg.d_model, generator=g,
+                    device="cuda").to(TDT[dtype])
+    pos = torch.arange(150, device="cuda", dtype=torch.int32).expand(2, 150)
+    got, (ckv, kr) = mla.mla_forward(params, cfg, x, pos)
+    want, (wckv, wkr) = mla.mla_forward(params, cfg, x, pos, plain=True)
+    assert torch.equal(ckv, wckv) and torch.equal(kr, wkr)
+    scale = want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype] * scale)

@@ -18,8 +18,11 @@ d_model 64, f32) with JAX's weights carried across by
   on both planes do not depend on what the padding holds (the Pallas
   kernel's value, random values). At a capacity factor of E / k no
   token can drop: every stream equals B = 1 and the JAX engine's;
-- the config registry as data: every config of the reference, mla
-  (still out of the port) raising.
+- nemotron-4's head dim 192 (squared_relu) on the ring-cache model and
+  both planes of the paged engine, and h2o-danube's head dim 80 under a
+  window of 8 the prompts pass, on the ring-cache model;
+- the config registry as data: every config of the reference; mla, the
+  last family served, giving the reference's tree and logits.
 
 The reference's norm scales start at zero, which makes every stream one
 repeated token; the weights are perturbed as in
@@ -49,26 +52,30 @@ from test_torch_engine import _close_taps, _drive_differential
 LOGIT_TOL = 2e-5
 VOCAB = 331
 MOE = "phi3.5-moe-42b-a6.6b"
-FAMILIES = {  # id: (config, changes to the reduced config)
-    "moe": (MOE, {}),
-    "moe-dense1": (MOE, dict(first_dense_layers=1, d_ff_dense=128)),
-    "vlm": ("paligemma-3b", {}),
-    "qwen3": ("qwen3-4b", {}),
+FAMILIES = {  # id: (config, changes to the reduced moe, and to the config)
+    "moe": (MOE, {}, {}),
+    "moe-dense1": (MOE, dict(first_dense_layers=1, d_ff_dense=128), {}),
+    "vlm": ("paligemma-3b", {}, {}),
+    "qwen3": ("qwen3-4b", {}, {}),
+    # the published head dims 192 (nemotron-4, squared_relu) and 80
+    # (h2o-danube, under a window the prompts pass, so the ring wraps)
+    "nemotron": ("nemotron-4-340b", {}, dict(head_dim=192)),
+    "danube": ("h2o-danube-1.8b", {}, dict(head_dim=80, sliding_window=8)),
 }
 
 
-def _reduced(get, red, name, moe_kw):
+def _reduced(get, red, name, moe_kw, cfg_kw=None):
     cfg = red(get(name), layers=2, d_model=64, vocab=VOCAB)
     if moe_kw:
         cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, **moe_kw))
-    return cfg
+    return cfg.replace(**(cfg_kw or {}))
 
 
-def _pair(name, moe_kw=None, seed=0):
+def _pair(name, moe_kw=None, cfg_kw=None, seed=0):
     """(jcfg, jax params, tcfg, port params): the reference's weights
     with every leaf perturbed by 0.1 N(0, 1), carried across."""
-    jcfg = _reduced(j_get_config, j_reduced, name, moe_kw)
-    tcfg = _reduced(get_config, reduced, name, moe_kw)
+    jcfg = _reduced(j_get_config, j_reduced, name, moe_kw, cfg_kw)
+    tcfg = _reduced(get_config, reduced, name, moe_kw, cfg_kw)
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
     rng = np.random.default_rng(seed)
     jp = jax.tree.map(
@@ -97,6 +104,8 @@ def test_ring_cache_prefill_decode_match_jax(pairs, fid):
     jcfg, jp, tcfg, tp = pairs(fid)
     if fid == "moe-dense1":
         assert len(tp["layers_pre"]) == 1 and "mlp" in tp["layers_pre"][0]
+    if fid == "danube":
+        assert TM.cache_window(tcfg, 32) == 8 and tcfg.resolved_head_dim == 80
     rng = np.random.default_rng(1)
     B, S, capacity = 2, 11, 32
     tokens = rng.integers(0, VOCAB, size=(B, S))
@@ -149,7 +158,7 @@ def test_bf16_embed_scale_and_geglu_match_jax(pairs):
 # ======================================================================
 # the paged engine, both planes, against the JAX engine
 # ======================================================================
-ENGINE_FAMILIES = ["moe", "vlm", "qwen3"]
+ENGINE_FAMILIES = ["moe", "vlm", "qwen3", "nemotron"]
 
 
 @pytest.mark.parametrize("fused", [True, False], ids=["fused", "tokenwise"])
@@ -359,10 +368,31 @@ def test_list_configs_matches_reference():
 
 @pytest.mark.parametrize("name,family", [("deepseek-v2-236b", "mla")])
 def test_unserved_families_raise(name, family):
+    """mla, the last family the port did not serve, is served: the port's
+    init gives the reference's tree, shapes and types, the leading dense
+    layer in ``layers_pre`` and MLA's projections in every layer, and
+    the reference's prefill logits on the carried weights. The dry
+    run's surrogate attention still raises."""
     cfg = reduced(get_config(name), layers=2, d_model=64, vocab=VOCAB)
     assert family in (cfg.family, "mla" if cfg.mla else None)
+    jcfg = j_reduced(j_get_config(name), layers=2, d_model=64, vocab=VOCAB)
+    jp = j_init_params(jcfg, jax.random.PRNGKey(0))
+    tp = TM.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert jax.tree.map(lambda t: (tuple(t.shape), str(t.dtype)[6:]), tp) \
+        == jax.tree.map(lambda a: (a.shape, str(a.dtype)), jp)
+    assert set(tp["layers_pre"][0]["attn"]) == {
+        "w_dq", "q_norm", "w_uq", "w_dkv", "kv_norm", "w_uk", "w_uv", "wo"}
+    carried = TM.params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    tokens = np.random.default_rng(3).integers(0, VOCAB, size=(2, 9))
+    want, _ = JM.prefill(jcfg, jp, jnp.asarray(tokens),
+                         JM.init_cache(jcfg, 2, 16))
+    got, _ = TM.prefill(cfg, carried, torch.from_numpy(tokens),
+                        TM.init_cache(cfg, 2, 16, "cpu"))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=LOGIT_TOL, atol=LOGIT_TOL)
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        TM.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        TM.init_params(cfg.replace(attention_impl="surrogate"),
+                       torch.Generator().manual_seed(0), "cpu")
 
 
 @pytest.mark.parametrize("fid", ["moe-dense1", "vlm"])
@@ -370,7 +400,7 @@ def test_init_params_tree_matches_jax(fid):
     """The port's init gives the reference's tree, shapes and types, the
     leading dense layer of a moe stack in ``layers_pre`` and the router
     f32 at a bf16 ``param_dtype``."""
-    name, moe_kw = FAMILIES[fid]
+    name, moe_kw, _ = FAMILIES[fid]
     jcfg = _reduced(j_get_config, j_reduced, name, moe_kw).replace(
         param_dtype="bfloat16")
     tcfg = _reduced(get_config, reduced, name, moe_kw).replace(

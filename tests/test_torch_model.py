@@ -174,15 +174,22 @@ def test_params_from_numpy_keeps_mixer_f32_leaves(param_dtype):
 
 
 # kw1 and kw3 were the hybrid and encdec families, which the model now
-# serves: the cases left keep their ids
+# serves; kw2, mla attention (here on a dense stack), is served too and
+# holds the reference's prefill and decode: the cases left keep their ids
 @pytest.mark.parametrize("kw", [dict(attention_impl="surrogate"),
                                 dict(mla=MLAConfig(32, 32, 16, 8, 16))],
                          ids=["kw0", "kw2"])
 def test_unported_model_options_raise(kw):
     cfg = reduced(get_config("qwen2-1.5b"), layers=2, d_model=64,
                   vocab=331).replace(**kw)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        TM.init_cache(cfg, 1, 16, "cpu")
+    if cfg.mla is None:
+        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+            TM.init_cache(cfg, 1, 16, "cpu")
+    else:
+        cache = TM.init_cache(cfg, 1, 16, "cpu")
+        assert cache["ckv"].shape == (2, 1, 16, 32)
+        assert cache["k_rope"].shape == (2, 1, 16, 8)
+        _check(_run_both(_pair("qwen2-1.5b", **kw), 9, 32, (9, 5), steps=4))
     dense = reduced(get_config("qwen2-1.5b"), layers=2, d_model=64,
                     vocab=331)
     tp = TM.init_params(dense, torch.Generator().manual_seed(0), "cpu")

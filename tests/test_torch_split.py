@@ -134,18 +134,20 @@ def test_wrapper_takes_any_page(dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_wrapper_head_dims(dtype):
-    """The paged body is instantiated for the head dims 32, 128 and 256
-    in both types (its m16n8k16 tiles need a multiple of 16), the flash
-    body for 64, 128 and 256; others raise before any launch."""
-    for D, ok in ((32, True), (128, True), (256, True), (64, False),
-                  (16, False)):
+    """The paged body is instantiated for the head dims 32, 80, 128, 192
+    and 256 in both types (its m16n8k16 tiles need a multiple of 16), the
+    flash body for 64, 80, 128, 192 and 256; others raise before any
+    launch."""
+    for D, ok in ((32, True), (80, True), (128, True), (192, True),
+                  (256, True), (64, False), (16, False)):
         q, kp, bt, ints = _pages(dtype, page=16, D=D)
         if ok:
             pa_mod._check(q, kp, kp, bt, ints)
         else:
             with pytest.raises(ValueError, match="head_dim"):
                 pa_mod._check(q, kp, kp, bt, ints)
-    for D, ok in ((64, True), (128, True), (256, True), (32, False)):
+    for D, ok in ((64, True), (80, True), (128, True), (192, True),
+                  (256, True), (32, False), (16, False)):
         x = torch.zeros((1, 4, 8, D), dtype=dtype)
         if ok:
             fp_mod._check(x, x[:, :2], x[:, :2], None, 0)
