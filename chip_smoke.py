@@ -58,6 +58,21 @@ read just after:
   interactive sessions on the wall clock at scale 1 with a drained
   replica's sessions live-migrating; (h4) the launcher's ``--replicas 3
   --workload handoff`` (at full depth);
+- (h5) the replica fleet over a mesh on the same 14 layers: two
+  replicas, each sharding its page store over one mesh of ranks that
+  share the card (gloo through host memory), the leader running the
+  fleet's control plane and the other ranks following both replicas in
+  one loop: (h5a) (h1)'s handoff trace in f32 on a 1x2 mesh (heads),
+  decisions, turn records and every session's stream equal to the
+  same fleet's on one device, each migrated session's pages read
+  through the device plane bit for bit; (h5b) an (h2)-style bf16 trace
+  on a 1x4 mesh (slots) with barge-ins, a drained replica and pools
+  that evict: every plan done or cancelled as the decision log says,
+  every replica (the drained one too) empty at the end, the streams
+  logged against one device's; (h5c) the launcher's ``--engine live
+  --replicas 2 --mesh 1x2 --workload handoff`` (at full depth), every
+  turn served; the ranks' launch counts are summed into the kernels'
+  line;
 - (i) the moe and vlm families: (i0) the three attention kernels at
   head dim 256 (paligemma-3b's round, MQA with 8 query heads) against
   their plain versions; (i1) paligemma-3b whole (18 layers, bf16) on
@@ -1918,9 +1933,10 @@ def tokenwise_trace(cfg, params, dev, mesh=None) -> dict:
 
 
 def sharded_rank(mesh, plan) -> dict:
-    """(g1)/(g2) on one rank of a 1xM mesh on the shared card: the parts
-    of ``plan``, each engine path with the kernels' counts zeroed just
-    before it and read just after (every rank counts its own)."""
+    """(g1)/(g2), or (h5), on one rank of a 1xM mesh on the shared card:
+    the parts of ``plan``, each engine path with the kernels' counts
+    zeroed just before it and read just after (every rank counts its
+    own)."""
     from repro_torch.launch.serve import build_demo
     dev = mesh.device
     out, params = {}, None
@@ -1945,9 +1961,11 @@ def sharded_rank(mesh, plan) -> dict:
             res = g2_trace(cfg, params, dev, mesh)
         elif what == "tokenwise":
             res = tokenwise_trace(cfg, params, dev, mesh)
-        else:
+        elif what == "replay":
             res = replay_run(cfg, params, dev, True, mesh=mesh,
                              label="(g2)")
+        else:                             # (h5): "h5a" or "h5b"
+            res = mesh_fleet_run(cfg, params, dev, what, mesh)
         out[part] = dict(result=res, counts={n: w.launches
                                              for n, w in wrappers.items()})
     return out
@@ -2111,23 +2129,26 @@ def watch_migrations(eng, snaps: dict) -> None:
 
 
 def fleet_replay(cfg, params, dev, trace: dict, *, replicas=FLEET,
-                 num_pages=None, drain=None, snaps=None):
+                 num_pages=None, drain=None, snaps=None, mesh=None):
     """``run_fleet_replay`` (one replica: ``run_replay``) of ``trace`` on
     the fused plane, every replica's invariants checked after every
     round and its logits held finite. Returns (metrics, gateway,
-    engines, seconds)."""
+    engines, seconds). With ``mesh`` (h5) the replicas shard their pages
+    over it: the leader replays, a follower follows and gets None."""
     from repro_torch.serving.fleet import run_fleet_replay
     from repro_torch.serving.gateway.replay import ReplayConfig, run_replay
     from repro_torch.serving.paged_engine import PagedRealtimeEngine
     from repro_torch.serving.workload import WorkloadConfig
     engines, bad = [], []
+    leader = mesh is None or mesh.is_leader
 
-    def factory(clock):
+    def factory(clock, index=0):
         eng = PagedRealtimeEngine(cfg, params, clock=clock, device=dev,
-                                  num_pages=num_pages, **FLEET_GEOMETRY)
+                                  num_pages=num_pages, mesh=mesh,
+                                  mesh_index=index, **FLEET_GEOMETRY)
         eng.logit_tap = lambda sid, lg: \
             bad.append(sid) if not np.isfinite(lg).all() else None
-        if snaps is not None:
+        if snaps is not None and leader:
             watch_migrations(eng, snaps)
         engines.append(eng)
         return eng
@@ -2138,7 +2159,9 @@ def fleet_replay(cfg, params, dev, trace: dict, *, replicas=FLEET,
         m, gw = run_replay(factory, wl, rc, seed=SEED)
     else:
         m, gw = run_fleet_replay(factory, replicas, wl, rc, seed=SEED,
-                                 drain_after_routes=drain)
+                                 drain_after_routes=drain, mesh=mesh)
+    if not leader:
+        return None
     torch.cuda.synchronize()
     check(not bad, f"fleet replay: non-finite logits for {bad}")
     check(m.completed_sessions == wl.num_sessions,
@@ -2368,6 +2391,207 @@ def launcher_fleet_phase() -> None:
     log(f"[fleet] (h4) {' '.join(cmd[1:])}: {time.perf_counter() - t0:.1f}"
         f" s; " + "; ".join(f"{k} {v}" for k, v in summary.items())
         + "; " + "; ".join(" ".join(r.split()) for r in rows))
+
+
+# ======================================================================
+# (h5) the replica fleet over a mesh: every replica shards its pages over
+# one 1xM mesh of ranks sharing the card
+# ======================================================================
+H5_REPLICAS = 2
+# (h5a) (h1)'s barge-free handoff trace in f32 on a 1x2 mesh (heads),
+# (h5b) an (h2)-style bf16 trace on a 1x4 mesh (slots): 4 sessions with
+# barge-ins, replica 0 drained after the last route and 16 pages a
+# replica (the pools evict); each fleet's twin on one device runs in
+# this process. (h5b) was cut from 5 sessions on 18 pages (198 replica
+# rounds, a migration cancelled for its destination's pressure) to 155
+# rounds; the CPU tests run the 5-session trace on a mesh
+H5_PLANS = {2: [("h5a", "float32")], 4: [("h5b", "bfloat16")]}
+H5_RUNS = {"h5a": (H1_TRACE, {}),
+           "h5b": (dict(H2_TRACE, num_sessions=4),
+                   dict(num_pages=16, drain=(0, 4)))}
+
+
+def fleet_view(m, gw, engines, secs, snaps=None) -> dict:
+    """What (h5) holds between a fleet on a mesh and on one device: the
+    decisions, turn records, every session's stream, the plans, each
+    migrated session's pages (read through the device plane before the
+    move and after the landing: equal bit for bit or not), each
+    replica's end state, and the fused steps, rounds and seconds."""
+    done = gw.migrator.completed()
+    pages = {}
+    for p in done:
+        snap = (snaps or {}).get(p.session_id)
+        if snap is not None:
+            pages[p.session_id] = (
+                p.pages, snap["pages"], snap["after"] is not None
+                and torch.equal(as_bytes(snap["before"]),
+                                as_bytes(snap["after"])))
+    return dict(
+        decisions=list(gw.router.decisions),
+        records=[dataclasses.asdict(t) for t in m.turns],
+        histories=histories(engines),
+        plans=[(p.session_id, p.src, p.dst, p.state, p.reason, p.kind,
+                p.pages) for p in gw.migrator.log],
+        open_plans=len(gw.migrator.plans), pages=pages,
+        migration_bytes=m.migration_bytes,
+        wire=sum(gw.replicas.interconnect.wire_bytes(p.pages) for p in done),
+        off_path=m.summary()["migration_off_path"],
+        on_path_s=m.migration_on_path_s, off_path_s=m.migration_off_path_s,
+        evicted=[e.kv.evicted_blocks for e in engines],
+        reloaded=[e.kv.reloaded_blocks for e in engines],
+        empty=[e.pool.free_pages == e.num_pages and e.transfer.idle()
+               and all(s.ended for s in e.sessions.values())
+               for e in engines],
+        steps=sum(e.fused_launches for e in engines), rounds=gw.rounds,
+        secs=secs)
+
+
+def mesh_fleet_run(cfg, params, dev, what: str, mesh=None):
+    """(h5a) or (h5b): its trace on ``H5_REPLICAS`` replicas, on ``mesh``
+    (the leader returns ``fleet_view``, a follower None) or on one
+    device. (h5a) reads each migrated session's pages."""
+    trace, kw = H5_RUNS[what]
+    snaps = {} if what == "h5a" else None
+    out = fleet_replay(cfg, params, dev, trace, replicas=H5_REPLICAS,
+                       snaps=snaps, mesh=mesh, **kw)
+    return None if out is None else fleet_view(*out, snaps)
+
+
+def mesh_fleet_phase(cfg, params, dev) -> list:
+    """(h5a)/(h5b): each fleet twin on one device here, then on its mesh
+    of ranks sharing the card over gloo (1x2 heads in f32, 1x4 slots in
+    bf16). (h5a) is held record for record, stream for stream and page
+    for page to one device; (h5b) to its decision log and end states,
+    its streams logged against one device's. Returns the counts of every
+    path (a mesh's summed over its ranks)."""
+    from repro_torch.launch.mesh import spawn
+    c32, p32 = f32_twin(cfg, params)
+    single = {}
+
+    def one_device():
+        single["h5a"] = mesh_fleet_run(c32, p32, dev, "h5a")
+        single["h5b"] = mesh_fleet_run(cfg, params, dev, "h5b")
+    _, counts = main_path("fleet twins on one device (h5)", one_device)
+    paths = [counts]
+    steps = single["h5a"]["steps"] + single["h5b"]["steps"]
+    check(counts["paged_prefill_attention"] == cfg.num_layers * steps,
+          f"(h5) one device: {counts['paged_prefill_attention']} fused "
+          f"launches for {steps} steps of {cfg.num_layers} layers")
+    del p32
+    torch.cuda.empty_cache()
+    for M, plan in H5_PLANS.items():
+        kind = G_LAYOUTS[M]
+        t0 = time.perf_counter()
+        outs = spawn(f"1x{M}", sharded_rank, plan, device="cuda",
+                     timeout_s=600)
+        log(f"[fleet] (h5) 1x{M} ({kind}): {M} ranks on one card, gloo "
+            f"through host memory, {time.perf_counter() - t0:.1f} s")
+        for part in plan:
+            what, dtype = part
+            got, one = outs[0][part]["result"], single[what]
+            counts = {n: sum(o[part]["counts"][n] for o in outs)
+                      for n in outs[0][part]["counts"]}
+            tag = f"({what}) 1x{M} {kind} {dtype}"
+            log(f"[launches] {tag}: {counts}")
+            paths.append(counts)
+            # every rank runs the fused kernel once a layer a fused step
+            check(counts["paged_prefill_attention"]
+                  == M * cfg.num_layers * got["steps"],
+                  f"{tag}: {counts['paged_prefill_attention']} fused "
+                  f"launches for {got['steps']} steps of {cfg.num_layers} "
+                  f"layers on {M} ranks")
+            mesh_fleet_checks(tag, what, got, one)
+            same = sum(got["histories"].get(sid) == h
+                       for sid, h in one["histories"].items())
+            done = [p for p in got["plans"] if p[3] == "done"]
+            log(f"[fleet] {tag}: {H5_REPLICAS} replicas, "
+                f"{got['rounds']} replica rounds in {got['secs']:.1f} s = "
+                f"{got['secs'] / got['rounds'] * 1e3:.2f} ms/replica round "
+                f"(one device {one['secs'] / one['rounds'] * 1e3:.2f}); "
+                f"decisions equal {got['decisions'] == one['decisions']}, "
+                f"records equal {got['records'] == one['records']}, "
+                f"sessions with one device's stream {same}/"
+                f"{len(one['histories'])}; {len(done)} of "
+                f"{len(got['plans'])} migrations done, cancelled "
+                f"{[p[4] for p in got['plans'] if p[3] == 'cancelled']}; "
+                f"migration_bytes {got['migration_bytes']:.0f}, "
+                f"migration_off_path {got['off_path']:.4f} (seconds on "
+                f"the path {got['on_path_s']:.6g}, off it "
+                f"{got['off_path_s']:.6g}, modeled); evicted "
+                f"{got['evicted']}, reloaded {got['reloaded']} blocks")
+    return paths
+
+
+def mesh_fleet_checks(tag: str, what: str, got: dict, one: dict) -> None:
+    """(h5a): decisions, records, streams and plans equal one device's,
+    each migrated session's pages land bit for bit, the wire bytes add
+    up. (h5b): every decided migration ended done or cancelled as the
+    log accounts for, replica 0 was drained, the pools evicted. Both:
+    every replica ends empty."""
+    moves = [d for d in got["decisions"] if d[0] in ("migrate", "handoff")]
+    states = [p[3] for p in got["plans"]]
+    check(moves and len(states) == len(moves) and not got["open_plans"]
+          and set(states) <= {"done", "cancelled"}
+          and all(p[4] in ("barge", "hangup", "dst_pressure")
+                  for p in got["plans"] if p[3] == "cancelled"),
+          f"{tag}: {len(moves)} decided, plans {got['plans']}")
+    check(all(got["empty"]), f"{tag}: replicas end holding pages, live "
+          f"sessions or transfers: {got['empty']}")
+    if what == "h5a":
+        for key in ("decisions", "records", "histories", "plans",
+                    "migration_bytes", "evicted", "reloaded"):
+            check(got[key] == one[key], f"{tag}: {key} differ from the "
+                  f"single-device fleet's")
+        done = [p for p in got["plans"] if p[3] == "done"]
+        check(done and sorted(got["pages"]) == sorted(p[0] for p in done),
+              f"{tag}: pages read for {sorted(got['pages'])}, migrations "
+              f"done {done}")
+        for sid, (moved, committed, exact) in got["pages"].items():
+            check(moved == committed > 0 and exact,
+                  f"{tag}: {sid} moved {moved} of {committed} pages, "
+                  f"bit for bit {exact}")
+        check(got["migration_bytes"] == got["wire"],
+              f"{tag}: migration_bytes {got['migration_bytes']} != "
+              f"{got['wire']}")
+    else:
+        check(("drain", 0) in got["decisions"],
+              f"{tag}: replica 0 was never drained")
+        check(sum(got["evicted"]) > 0, f"{tag}: the pools never evicted")
+
+
+def launcher_mesh_fleet_phase() -> None:
+    """(h5c) the launcher's fleet over a mesh on the card: ``--engine
+    live --replicas 2 --mesh 1x2 --workload handoff`` at qwen2-1.5b (full
+    depth) on three sessions; every turn of the trace must be served,
+    and there must be one row a replica."""
+    import os
+    from repro_torch.serving.workload import WorkloadConfig, generate
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--engine",
+           "live", "--replicas", str(H5_REPLICAS), "--mesh", "1x2",
+           "--workload", "handoff", "--sessions", "3", "--json"]
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                         cwd=ROOT, env=dict(os.environ,
+                                            PYTHONPATH=str(ROOT / "src")))
+    check(out.returncode == 0, f"(h5c) {' '.join(cmd[1:])} exited "
+          f"{out.returncode}: {out.stderr[-2000:]}")
+    s = json.loads(out.stdout[out.stdout.index("{"):])
+    wl = WorkloadConfig(kind="handoff", num_sessions=3, seed=SEED,
+                        arrival="poisson", rate_rps=2.0)
+    want = sum(min(len(x.turns), 2) for x in generate(wl))
+    rows = [s.get(f"replica{i}", "") for i in range(H5_REPLICAS)]
+    check(s["turns"] == want and s["rounds"] > 0,
+          f"(h5c) {s['turns']} turns served of the trace's {want}")
+    check(all("routed=" in r and "peak_occupancy=" in r for r in rows),
+          f"(h5c) replica rows: {rows}")
+    mesh_line = [ln for ln in out.stderr.splitlines()
+                 if ln.startswith("[mesh]")]
+    log(f"[fleet] (h5c) {' '.join(cmd[1:])}: "
+        f"{time.perf_counter() - t0:.1f} s; {mesh_line[:1]}; turns "
+        f"{s['turns']}/{want}, rounds {s['rounds']}, handoffs "
+        f"{s['handoffs']}, migrations {s['migrations']}, P50/P90 TTFP "
+        f"{s['p50_ttfp']:.4f} / {s['p90_ttfp']:.4f} s, migration_off_path "
+        f"{s['migration_off_path']:.4f}; " + "; ".join(rows))
 
 
 # ======================================================================
@@ -3367,6 +3591,13 @@ def main() -> int:
     del h1, h2, h3
     launcher_fleet_phase()
     log(f"[fleet] phase (h): {time.perf_counter() - t_h:.1f} s")
+    # (h5) the fleet over a mesh on the same layers: the one-device twins
+    # here, each mesh's paths in its ranks (their counts summed)
+    t_h5 = time.perf_counter()
+    for counts in mesh_fleet_phase(cfg, params, dev):
+        add(counts, {"paged_prefill_attention": 0})
+    launcher_mesh_fleet_phase()
+    log(f"[fleet] phase (h5): {time.perf_counter() - t_h5:.1f} s")
     del eng, params
     # (d) mamba2-1.3b at full width; prompts no multiple of its chunk
     t0 = time.perf_counter()

@@ -6,7 +6,9 @@ process (a rank), and the mesh is the set of ``torch.distributed``
 groups those ranks share:
 
 - the world, D * M ranks; rank 0 is the leader, which alone runs the
-  control plane and sends every other rank the commands it follows;
+  control plane and sends every other rank the commands it follows,
+  each tagged with the engine it is for (a fleet's replicas share the
+  mesh);
 - one 'model' group per data index ``d`` (ranks ``d*M .. d*M + M-1``):
   the page store shards over it, and the plane's collectives run in it;
 - the D data replicas, which run the same batch (the reference
@@ -44,6 +46,7 @@ import torch.distributed as dist
 
 TIMEOUT_S = 90.0
 _HEADER = 64          # int64 slots of a command's header
+_TARGET = _HEADER - 1   # the slot that carries the command's engine index
 
 
 def parse_mesh(spec: str) -> tuple:
@@ -115,17 +118,21 @@ class ServingMesh:
         return t
 
     # ------------------------------------------------------- commands
-    def send(self, op: int, arrays: Sequence[np.ndarray]) -> None:
-        """Leader: one command, ``op`` and its integer arrays, to every
-        other rank (two broadcasts on the host: header, then data)."""
+    def send(self, op: int, arrays: Sequence[np.ndarray],
+             target: int = 0) -> None:
+        """Leader: one command, ``op`` and its integer arrays, for engine
+        ``target`` (its index among the engines that share the mesh) to
+        every other rank (two broadcasts on the host: header, then
+        data)."""
         arrays = [np.asarray(a, np.int64) for a in arrays]
         head = [op, len(arrays)]
         for a in arrays:
             head += [a.ndim, *a.shape]
-        if len(head) > _HEADER:
+        if len(head) > _TARGET:
             raise ValueError(f"command {op}: header of {len(head)} slots")
         header = torch.zeros(_HEADER + 1, dtype=torch.int64)
         header[:len(head)] = torch.tensor(head)
+        header[_TARGET] = target
         header[-1] = sum(a.size for a in arrays)
         dist.broadcast(header, src=0, group=self.cmd_group)
         if header[-1] > 0:
@@ -134,7 +141,7 @@ class ServingMesh:
             dist.broadcast(body, src=0, group=self.cmd_group)
 
     def recv(self) -> tuple:
-        """Follower: the leader's next ``(op, arrays)``."""
+        """Follower: the leader's next ``(target, op, arrays)``."""
         header = torch.zeros(_HEADER + 1, dtype=torch.int64)
         dist.broadcast(header, src=0, group=self.cmd_group)
         head = header.tolist()
@@ -151,7 +158,7 @@ class ServingMesh:
             size = int(np.prod(shape, dtype=np.int64))
             arrays.append(body[at:at + size].reshape(shape))
             at += size
-        return op, arrays
+        return head[_TARGET], op, arrays
 
     def agree(self, x: float) -> bool:
         """Whether every rank passed the same ``x`` (a float64; an int

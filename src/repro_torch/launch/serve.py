@@ -43,10 +43,17 @@ ranks that share a card talk gloo through host memory:
   PYTHONPATH=src python -m repro_torch.launch.serve --engine real \
       --device cpu --config tiny --mesh 1x2
 
+``--mesh`` composes with ``--replicas``: every replica shards its page
+store over the same mesh, and rank 0 runs the fleet's control plane
+(DESIGN.md §9 inside §12):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --engine live \
+      --device cpu --config tiny --replicas 3 --mesh 1x2 \
+      --workload handoff
+
 The flags and their rejections are the reference launcher's; kernel
-autotune (``--autotune``) and the fleet over a mesh (``--mesh`` with
-``--replicas`` above 1) are not ported yet and are rejected naming
-their ROADMAP item.
+autotune (``--autotune``) is not ported yet and is rejected naming its
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -179,15 +186,14 @@ def _live(config: str, device, seed: int, kw: dict, as_json: bool,
     if replicas > 1:
         from repro_torch.serving.fleet import run_fleet_workload
         m, gw = run_fleet_workload(replicas=replicas, model=(cfg, params),
-                                   device=dev, seed=seed, **kw)
-        engines = list(gw.replicas)
+                                   device=dev, seed=seed, mesh=mesh, **kw)
     else:
         from repro_torch.serving.gateway import run_gateway_workload
         m, gw = run_gateway_workload(model=(cfg, params), device=dev,
                                      seed=seed, mesh=mesh, **kw)
-        if gw is None:                   # a follower rank
-            return
-        engines = [gw.engine]
+    if gw is None:                       # a follower rank
+        return
+    engines = list(gw.replicas) if replicas > 1 else [gw.engine]
     s = m.summary()
     s["rounds"] = gw.rounds
     s["max_over_frontier_s"] = gw.max_over_frontier_s
@@ -302,7 +308,9 @@ def main(argv=None) -> None:
                     help="live engine: data-parallel engine replicas "
                          "behind one gateway, sharing one set of weights, "
                          "with live cross-replica KV migration "
-                         "(DESIGN.md §12)")
+                         "(DESIGN.md §12). Composes with --mesh: every "
+                         "replica shards its page store over the same "
+                         "mesh")
     args = ap.parse_args(argv)
 
     if args.engine != "live":
@@ -391,9 +399,6 @@ def main(argv=None) -> None:
                      "drop --no-fused-step (DESIGN.md §16)")
         if args.autotune is not None:
             _not_ported(ap, "--autotune (kernel autotune)", "4")
-        if replicas > 1 and args.mesh is not None:
-            _not_ported(ap, "--mesh with --replicas above 1 (the fleet "
-                        "over a mesh)", "8")
         live = LIVE[config]
         page = live["page_size"]
         slots = args.slots if args.slots is not None else 8

@@ -149,18 +149,37 @@ def run_fleet_replay(engine_factory, n_replicas: int,
                      workload: WorkloadConfig,
                      cfg: Optional[ReplayConfig] = None, *, seed: int = 0,
                      check_invariants: bool = True,
-                     interconnect_gb_s: float = 50.0, **fleet_kw):
+                     interconnect_gb_s: float = 50.0, mesh=None,
+                     **fleet_kw):
     """Build ``n_replicas`` engines on one ReplayClock via
     ``engine_factory(clock)``, replay the workload through the fleet
-    twin, return (metrics, FleetReplayGateway)."""
+    twin, return (metrics, FleetReplayGateway).
+
+    With ``mesh`` every replica shards its pages over that mesh and every
+    rank calls this with the same arguments: ``engine_factory(clock, i)``
+    builds replica ``i`` with ``mesh=mesh, mesh_index=i`` (each
+    constructor is a collective, so every rank builds them in this
+    order). The leader replays and checks the invariants, then releases
+    the other ranks, which follow the replicas here and get
+    ``(None, None)``."""
     clock = ReplayClock()
-    engines = [engine_factory(clock) for _ in range(n_replicas)]
-    rs = ReplicaSet(engines, interconnect_gb_s=interconnect_gb_s)
-    gw = FleetReplayGateway(rs, workload, cfg, seed=seed, **fleet_kw)
+    if mesh is None:
+        engines = [engine_factory(clock) for _ in range(n_replicas)]
+    else:
+        engines = [engine_factory(clock, i) for i in range(n_replicas)]
+        if not mesh.is_leader:
+            from repro_torch.serving.paged_engine import follow_engines
+            follow_engines(engines)
+            return None, None
+    try:
+        rs = ReplicaSet(engines, interconnect_gb_s=interconnect_gb_s)
+        gw = FleetReplayGateway(rs, workload, cfg, seed=seed, **fleet_kw)
 
-    def check() -> None:
-        for e in engines:
-            e.check_invariants()
+        def check() -> None:
+            for e in engines:
+                e.check_invariants()
 
-    gw.run(check_every_round=check if check_invariants else None)
+        gw.run(check_every_round=check if check_invariants else None)
+    finally:
+        engines[0].release_followers()
     return gw.metrics, gw

@@ -5,7 +5,8 @@ Each replica is a full ``PagedRealtimeEngine`` — its own page pool, KV
 accounting, transfer ledger, monitor, and preloader. The replicas take
 one ``params`` dict, so the weights sit on the device once, and the
 kernels build once per process, so an N-replica fleet pays one build,
-not N.
+not N. On a mesh every replica shards its pages over the same mesh
+(DESIGN.md §9 inside §12), replica i's commands tagged i.
 
 The ``interconnect`` models the replica-to-replica NIC the same way
 ``core/kv_manager.TransferChannel`` models PCIe: serialized shared
@@ -31,6 +32,13 @@ class ReplicaSet:
         ws = engines[0].kv.channel.wire_scale
         assert all(e.kv.channel.wire_scale == ws for e in engines), \
             "replicas must share a KV wire format (same kv_quant)"
+        # on a mesh, replica i's device commands name engine i, which
+        # every follower rank holds at that index
+        mesh = engines[0].mesh
+        assert all(e.mesh is mesh for e in engines) and (
+            mesh is None or [e.mesh_index for e in engines]
+            == list(range(len(engines)))), \
+            "replicas on a mesh share it, replica i as its engine i"
         self.engines = list(engines)
         self.clock = clock
         self.block_bytes = bb

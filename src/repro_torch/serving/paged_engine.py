@@ -54,7 +54,11 @@ first sends to the other ranks as one small command, and every rank then
 runs it on its own shard. The other ranks run ``follow()`` until the
 leader calls ``release_followers()``. Offload gathers a page's shards to
 the leader and reload broadcasts the global chunk, so host copies (and
-the int8 codec's scales) are the single-device engine's.
+the int8 codec's scales) are the single-device engine's. Several engines
+can share one mesh (a fleet's replicas, DESIGN.md §12): each is built
+on every rank, in the same order, with its own ``mesh_index``, every
+command carries that index, and a follower rank runs one
+``follow_engines`` loop over all of them, which the leader ends once.
 
 The cross-replica migration methods (``migrate_out_*``,
 ``migrate_in_adopt``; DESIGN.md §12) are the reference's; the one that
@@ -215,6 +219,32 @@ _OP_STOP, _OP_STEP, _OP_FUSED, _OP_OFFLOAD, _OP_RELOAD, _OP_COW, \
     _OP_DENSE = range(7)
 
 
+def follow_engines(engines) -> None:
+    """A follower rank's loop: run each of the leader's device operations
+    on the engine its command names (by ``mesh_index``), on this rank's
+    shard of that engine's pages, until the one ``_OP_STOP`` of
+    ``release_followers``. A command for an engine this rank does not
+    hold raises."""
+    mesh = engines[0].mesh
+    assert mesh is not None and not mesh.is_leader \
+        and all(e.mesh is mesh for e in engines), \
+        "only a mesh's follower ranks follow, on engines of that mesh"
+    by_index = {e.mesh_index: e for e in engines}
+    if len(by_index) != len(engines):
+        raise ValueError(f"engines share a mesh index: "
+                         f"{[e.mesh_index for e in engines]}")
+    while True:
+        target, op, arrays = mesh.recv()
+        if op == _OP_STOP:
+            return
+        eng = by_index.get(target)
+        if eng is None:
+            raise ValueError(f"rank {mesh.rank}: command {op} for engine "
+                             f"{target}, which this rank does not hold "
+                             f"(it holds {sorted(by_index)})")
+        eng._run_op(op, arrays)
+
+
 def _weights_digest(params) -> int:
     """A 48-bit digest of a strided sample of every weight, to check that
     all ranks of a mesh hold the same weights."""
@@ -281,7 +311,7 @@ class PagedRealtimeEngine:
                  clock=None, scheduler: Optional[UrgencyScheduler] = None,
                  kv: Optional[KVManager] = None, kv_policy: str = "next_use",
                  pcie_gb_s: float = 25.0, preload: bool = True,
-                 device="cuda", mesh=None,
+                 device="cuda", mesh=None, mesh_index: int = 0,
                  async_transfers: bool = True,
                  chunk_pages: Optional[int] = None,
                  transfer_chunks_per_round: int = 1,
@@ -307,6 +337,7 @@ class PagedRealtimeEngine:
         # page slots) over the mesh's 'model' axis; weights, tables and
         # the host control plane stay replicated
         self.mesh = mesh
+        self.mesh_index = mesh_index     # the target of its commands
         self.layout = None
         if mesh is not None:
             from repro_torch.distributed.paged import PagedKVLayout
@@ -558,7 +589,8 @@ class PagedRealtimeEngine:
         t0 = time.perf_counter()
         staged = self._stage(host)
         if self.mesh is not None:
-            self.mesh.send(_OP_RELOAD, [[s.pages[li] for li in lis]])
+            self.mesh.send(_OP_RELOAD, [[s.pages[li] for li in lis]],
+                           self.mesh_index)
             self.mesh.broadcast(staged)
         self.reload_wall_s.append(time.perf_counter() - t0)
         self.pool.complete_reload(sid, lis, self._store(), staged=staged)
@@ -578,14 +610,15 @@ class PagedRealtimeEngine:
 
     # ---------------------------------------------------- device plane
     # Every touch of the page store is one of the operations below. On
-    # a mesh the leader sends each to the other ranks first (``_device``)
-    # and every rank runs it on its shard; the follower ranks loop in
-    # ``follow``. The arguments are host integer arrays, so the command
-    # carries them as they are.
+    # a mesh the leader sends each to the other ranks first (``_device``),
+    # tagged with this engine's ``mesh_index``, and every rank runs it on
+    # its shard; the follower ranks loop in ``follow_engines``. The
+    # arguments are host integer arrays, so the command carries them as
+    # they are.
     def _device(self, op: int, *arrays):
         if self.mesh is not None:
             assert self.mesh.is_leader, "only the leader sends operations"
-            self.mesh.send(op, arrays)
+            self.mesh.send(op, arrays, self.mesh_index)
         return self._run_op(op, arrays)
 
     def _run_op(self, op: int, arrays):
@@ -595,18 +628,14 @@ class PagedRealtimeEngine:
         return run(*arrays)
 
     def follow(self) -> None:
-        """A follower rank's loop: run the leader's device operations on
-        this rank's shard of the pages until ``release_followers``."""
-        assert self.mesh is not None and not self.mesh.is_leader, \
-            "only a mesh's follower ranks follow"
-        while True:
-            op, arrays = self.mesh.recv()
-            if op == _OP_STOP:
-                return
-            self._run_op(op, arrays)
+        """A follower rank's loop over this engine alone
+        (``follow_engines``)."""
+        follow_engines([self])
 
     def release_followers(self) -> None:
-        """The leader is done: every follower's ``follow`` returns."""
+        """The leader is done with every engine on the mesh: each
+        follower's loop returns. A fleet calls this once, on any one
+        of its replicas."""
         if self.mesh is not None and self.mesh.is_leader:
             self.mesh.send(_OP_STOP, [])
 

@@ -21,11 +21,18 @@
   on the same trace: only what the trace determines (routes, drains,
   migration decisions, completions on a barge-free trace), never
   wall-clock order.
-- The launcher's ``--replicas 3 --workload handoff`` and its one-replica
-  ``--workload handoff``, on the CPU.
+- The launcher's ``--replicas 3 --workload handoff``, the same over a
+  ``--mesh 1x2`` of two CPU ranks, and its one-replica ``--workload
+  handoff``, on the CPU.
+- ``build_fleet_gateway``: kernel autotune raises naming its ROADMAP
+  item; a mesh is taken.
 """
 import dataclasses
 import json
+import os
+import subprocess
+import sys
+from pathlib import Path
 from types import SimpleNamespace
 
 import jax
@@ -51,6 +58,7 @@ import repro_torch.serving.fleet.migration as t_mig
 import repro_torch.serving.fleet.replica_set as t_rs
 import repro_torch.serving.fleet.router as t_router
 from repro_torch.configs import get_config, reduced
+from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.models.model import init_params, params_from_numpy
 from repro_torch.serving.fleet import build_fleet_gateway, \
     run_fleet_replay, run_fleet_workload
@@ -59,6 +67,7 @@ from repro_torch.serving.metrics import Metrics
 from repro_torch.serving.paged_engine import PagedRealtimeEngine
 from repro_torch.serving.workload import WorkloadConfig, generate
 
+ROOT = Path(__file__).resolve().parents[1]
 REPLICAS = 3
 VOCAB = 331
 
@@ -738,12 +747,26 @@ def test_live_fleet_on_cpu_matches_twin_decisions(tiny, kind, sessions,
 
 @pytest.mark.parametrize("kw,item", [
     (dict(autotune="cache.json"), "item 4"),
-    (dict(mesh=object()), "item 8"),
+    (dict(mesh="1x1"), "item 8"),
 ])
-def test_fleet_harness_rejects_what_is_not_ported(tiny, kw, item):
+def test_fleet_harness_rejects_what_is_not_ported(tiny, tmp_path, kw, item):
+    """Kernel autotune (ROADMAP item 4) is not ported and raises naming
+    its item. The fleet over a mesh (item 8) is: on a one-rank mesh the
+    harness builds every replica on it, replica i as engine i, and
+    nothing raises."""
     _, _, tcfg, tp = tiny
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        build_fleet_gateway(model=(tcfg, tp), device="cpu", **kw)
+    if "autotune" in kw:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+            build_fleet_gateway(model=(tcfg, tp), device="cpu", **kw)
+        return
+    mesh = make_serving_mesh(kw["mesh"], rank=0, device="cpu",
+                             init_method=f"file://{tmp_path}/rendezvous")
+    try:
+        gw = build_fleet_gateway(model=(tcfg, tp), device="cpu", mesh=mesh)
+    finally:
+        torch.distributed.destroy_process_group()
+    assert [(e.mesh, e.mesh_index) for e in gw.replicas] \
+        == [(mesh, i) for i in range(REPLICAS)]
 
 
 # ======================================================================
@@ -763,6 +786,36 @@ def test_launcher_fleet_handoff_on_cpu(capsys):
     moved_out = sum(int(r.split()[2].split("=")[1]) for r in rows)
     assert moved_in == moved_out == s["migrations"]
     assert all("peak_occupancy=" in r for r in rows)
+
+
+def test_launcher_fleet_over_a_mesh_on_cpu(capsys, tmp_path):
+    """``--replicas 3 --mesh 1x2`` spawns two ranks; rank 0 serves the
+    fleet, every replica sharding its pages over the mesh, and prints the
+    routed rows, handoffs and migrations of the run without a mesh."""
+    from repro_torch.launch import serve
+    flags = ["--engine", "live", "--device", "cpu", "--config", "tiny",
+             "--replicas", "3", "--workload", "handoff", "--sessions", "6",
+             "--clock-scale", "16", "--json"]
+    serve.main(flags)
+    plain = json.loads(capsys.readouterr().out)
+    # the ranks meet in a temporary directory: under tmp_path
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               TMPDIR=str(tmp_path), OMP_NUM_THREADS="1")
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", *flags, "--mesh",
+         "1x2"], capture_output=True, text=True, env=env, cwd=ROOT,
+        timeout=240)
+    assert r.returncode == 0, r.stderr[-4000:]
+    assert "[mesh] 1x2: 2 rank(s), ranks on the cpu, backend gloo" \
+        in r.stderr
+    meshed = json.loads(r.stdout)
+    for s in (plain, meshed):
+        assert s["rounds"] > 0 and s["handoffs"] > 0
+    for key in ("handoffs", "migrations", "migration_bytes", "turns"):
+        assert meshed[key] == plain[key], key
+    # routed=, migrated_in=, migrated_out= (peak occupancy is timing's)
+    assert [meshed[f"replica{i}"].split()[:3] for i in range(3)] \
+        == [plain[f"replica{i}"].split()[:3] for i in range(3)]
 
 
 def test_launcher_one_replica_takes_handoffs_and_stays(capsys):

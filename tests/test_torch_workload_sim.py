@@ -7,9 +7,9 @@ so everything they produce is held to the reference exactly: the
 seeded sessions and turns field by field, the simulator's
 ``Metrics.summary()`` dict, and the launcher's JSON. The launcher keeps
 every argparse rejection of the reference (``--mesh``'s included), and
-rejects what the port has not ported yet (``--autotune``, and a fleet of
-``--replicas`` above 1 over a ``--mesh``, whatever its ``--workload``)
-naming its ROADMAP item.
+rejects what the port has not ported yet (``--autotune``) naming its
+ROADMAP item; a fleet of ``--replicas`` above 1 over a ``--mesh``,
+whatever its ``--workload``, is taken.
 """
 import dataclasses
 import json
@@ -193,17 +193,18 @@ def test_launcher_rejects_as_reference(argv, words, monkeypatch, capsys):
 
 
 # what the port has not ported yet: rejected before any model is built.
-# The fleet (``--replicas`` above 1, the ``handoff`` workload) is ported
-# since; what remains of it is the fleet over a mesh
+# The fleet (``--replicas`` above 1, the ``handoff`` workload) is ported,
+# and since the fleet over a mesh too (item None): the launcher takes it
+# and launches on the mesh with the replica count
 NOT_PORTED = [
     ("--engine live --autotune cache.json",
      ["--engine", "live", "--autotune", "cache.json"], "--autotune", "4"),
     ("--engine live --replicas 2",
      ["--engine", "live", "--replicas", "2", "--mesh", "1x2"], "--mesh",
-     "8"),
+     None),
     ("--engine live --workload handoff",
      ["--engine", "live", "--workload", "handoff", "--replicas", "3",
-      "--mesh", "1x2"], "--mesh", "8"),
+      "--mesh", "1x2"], "--mesh", None),
 ]
 
 
@@ -211,6 +212,14 @@ NOT_PORTED = [
                          ids=[c[0] for c in NOT_PORTED])
 def test_launcher_rejects_what_is_not_ported(argv, flag, item,
                                              monkeypatch, capsys):
+    if item is None:
+        launched = []
+        monkeypatch.setattr(t_serve, "_serve", lambda mesh, device, fn:
+                            launched.append((mesh, fn.args[-1])))
+        _port_main(argv, monkeypatch)
+        replicas = int(argv[argv.index("--replicas") + 1])
+        assert launched == [(argv[argv.index(flag) + 1], replicas)]
+        return
     got = _rejection(_port_main, argv, monkeypatch, capsys)
     assert flag in got
     assert got.endswith(f"not ported yet (ROADMAP.md queue 1 item "

@@ -1,14 +1,17 @@
-"""Rank bodies and drives for ``tests/test_torch_sharded_plane.py``.
+"""Rank bodies and drives for ``tests/test_torch_sharded_plane.py`` and
+``tests/test_torch_fleet_mesh.py``.
 
 Each ``*_rank`` function runs on one rank of a CPU mesh, in a process of
 its own that ``repro_torch.launch.mesh.spawn`` started, so this module
 imports neither JAX nor the reference package (a rank would otherwise
 pay for importing them). Its inputs are numpy arrays made by the test
 from a seed; rank 0 returns what the test compares, the other ranks
-None. The drives (``drive_trace``, ``drive_prefix``) take any engine
-with the reference's API, so the test runs the very same code on the
-JAX engine and on the port's single-device engine.
+None. The drives (``drive_trace``, ``drive_prefix``) and the fleet's
+record (``fleet_replay``, ``fleet_record``) take any engine with the
+reference's API, so the test runs the very same code on the JAX engine
+and on the port's single-device engine.
 """
+import dataclasses
 from types import SimpleNamespace
 
 import numpy as np
@@ -216,3 +219,163 @@ def live_rank(mesh, cfg_kw: dict, weights) -> dict:
                                     for t in m.turns),
                 slots_free=all(s is None for s in eng.slot_state.values()),
                 pages_free=eng.pool.free_pages == eng.num_pages)
+
+
+# ======================================================================
+# the replica fleet over a mesh
+# ======================================================================
+FLEET_COUNTERS = ("migrations", "handoffs", "migration_bytes",
+                  "migration_on_path_s", "migration_off_path_s",
+                  "replica_occupancy")
+
+
+def spy_detached(eng, box: list) -> None:
+    """Count, in ``box``, the shared prefix pages each
+    ``migrate_out_begin`` of ``eng`` deep-copies to the host."""
+    begin = eng.migrate_out_begin
+
+    def spy(sid):
+        before = len(eng.pool.seq(sid).offloaded)
+        n = begin(sid)
+        box.append(len(eng.pool.seq(sid).offloaded) - before)
+        return n
+    eng.migrate_out_begin = spy
+
+
+def fleet_record(m, gw, detached=()) -> dict:
+    """What the fleet differential holds equal: the router's decisions,
+    every turn record, each replica's histories, turn stats, offload
+    events and transfer stats, the migration plans and counters."""
+    def view(eng):
+        return dict(
+            histories={sid: s.history for sid, s in eng.sessions.items()},
+            turn_stats={sid: s.turn_stats
+                        for sid, s in eng.sessions.items()},
+            offload_events=[tuple(e) for e in eng.offload_events],
+            evicted=eng.kv.evicted_blocks, reloaded=eng.kv.reloaded_blocks,
+            transfer=dataclasses.asdict(eng.transfer.stats),
+            cow=eng.cow_copies)
+    return dict(
+        decisions=list(gw.router.decisions),
+        records=[dataclasses.asdict(t) for t in m.turns],
+        replicas=[view(e) for e in gw.replicas],
+        plans=[(p.session_id, p.src, p.dst, p.state, p.reason, p.kind,
+                p.pages, p.t_start, p.net_done) for p in gw.migrator.log],
+        open_plans=len(gw.migrator.plans),
+        counters={k: getattr(m, k) for k in FLEET_COUNTERS},
+        rounds=gw.rounds, summary=m.summary(), detached=list(detached))
+
+
+def fleet_replay(run_fleet_replay, make_engine, make_wl, make_rc, run: dict,
+                 mesh=None):
+    """One fleet-twin run of ``run`` (replicas, geometry, workload and
+    replay kwargs, seed, drain) through either package's
+    ``run_fleet_replay``: ``make_engine(clock, **kw)`` builds a replica
+    (on ``mesh``, replica i with ``mesh_index=i``). Returns the record,
+    or None on a follower rank. ``empty`` says which replicas end with
+    no page held, no live session and no transfer queued."""
+    detached = []
+
+    def factory(clock, *index):
+        kw = dict(mesh=mesh, mesh_index=index[0]) if mesh is not None \
+            else {}
+        eng = make_engine(clock, **run["geometry"], **kw)
+        spy_detached(eng, detached)
+        return eng
+    m, gw = run_fleet_replay(factory, run["replicas"],
+                             make_wl(**run["workload"]),
+                             make_rc(**run.get("replay", {})),
+                             seed=run["seed"],
+                             drain_after_routes=run.get("drain"),
+                             **(dict(mesh=mesh) if mesh is not None else {}))
+    if gw is None:
+        return None
+    return dict(fleet_record(m, gw, detached),
+                kind=None if mesh is None else gw.replicas[0].layout.kind,
+                empty=[e.pool.free_pages == e.num_pages
+                       and all(s.ended for s in e.sessions.values())
+                       and e.transfer.idle()
+                       for e in gw.replicas])
+
+
+def fleet_rank(mesh, cfg_kw: dict, weights, runs: dict, replay=None,
+               live=None) -> dict:
+    """On a 1xM mesh: every fleet-twin run of ``runs`` with its replicas
+    sharding their pages over the mesh; with ``replay`` = (geometry,
+    workload kwargs, seed), ``run_replay`` on one sharded engine
+    (``replay_record``); with ``live`` (name -> workload kwargs),
+    ``run_fleet_workload`` on the mesh for each (``live_fleet_record``);
+    then the leader sends a command for an engine no rank holds. The
+    leader returns the records, a follower what its loop raised."""
+    torch.set_num_threads(1)
+    from repro_torch.serving.fleet import run_fleet_replay
+    from repro_torch.serving.gateway.replay import ReplayConfig
+    from repro_torch.serving.paged_engine import (_OP_COW,
+                                                  PagedRealtimeEngine,
+                                                  follow_engines)
+    from repro_torch.serving.workload import WorkloadConfig
+    cfg, params = _model(cfg_kw, weights)
+
+    def make_engine(clock, **kw):
+        return PagedRealtimeEngine(cfg, params, clock=clock, device="cpu",
+                                   **kw)
+    out = {name: fleet_replay(run_fleet_replay, make_engine, WorkloadConfig,
+                              ReplayConfig, run, mesh)
+           for name, run in runs.items()}
+    if replay is not None:
+        geometry, wl_kw, seed = replay
+        if mesh.is_leader:
+            box = {}
+
+            def factory(clock):
+                box["eng"] = make_engine(clock, mesh=mesh, **geometry)
+                return box["eng"]
+            try:
+                out["replay"] = replay_record(factory, wl_kw, seed)
+            finally:
+                box["eng"].release_followers()
+        else:
+            make_engine(None, mesh=mesh, **geometry).follow()
+    for name, kw in (live or {}).items():
+        out[f"live-{name}"] = live_fleet_record(mesh, cfg, params, kw)
+    # one engine on every rank, then a command for engine 3
+    eng = make_engine(None, mesh=mesh)
+    if mesh.is_leader:
+        mesh.send(_OP_COW, [[0, 1]], target=3)
+        return out
+    try:
+        follow_engines([eng])
+    except ValueError as e:
+        return dict(unknown_target=str(e))
+    return dict(unknown_target=None)
+
+
+def live_fleet_record(mesh, cfg, params, live: dict) -> dict:
+    """``run_fleet_workload`` over 3 replicas on ``mesh`` (``live``: the
+    workload's kwargs): what the trace determines, for the test to hold
+    to the twin. None on a follower rank."""
+    from repro_torch.serving.fleet import run_fleet_workload
+    m, gw = run_fleet_workload(
+        seed=0, scale=8.0, max_turns=2, max_prompt=6, max_response=6,
+        timeout_s=180.0, replicas=3, slots=2, num_pages=128,
+        audio_per_token_s=0.25, model=(cfg, params), device="cpu",
+        mesh=mesh, **live)
+    if gw is None:
+        return None
+    replicas = []
+    for e in gw.replicas:
+        e.flush_transfers()
+        e.check_invariants()
+        replicas.append(dict(
+            free=e.pool.free_pages == e.num_pages,
+            ended=all(s.ended for s in e.sessions.values()),
+            sessions=set(e.sessions), kind=e.layout.kind))
+    return dict(
+        decisions=list(gw.router.decisions), completed=m.completed_sessions,
+        migrations=m.migrations, summary_keys=set(m.summary()),
+        migrated_turns=sum(1 for t in m.turns if t.migrated),
+        open_plans=len(gw.migrator.plans),
+        done=[(p.session_id, p.src, p.dst)
+              for p in gw.migrator.completed()],
+        cancelled=len(gw.migrator.cancelled()), replicas=replicas,
+        shared_weights=all(e.params is params for e in gw.replicas))
