@@ -112,6 +112,23 @@ read just after:
   prompts of 1171-5000 tokens on a 4096-slot ring, bf16 and f32 (f32
   held to B = 1), against the plain versions; (k4) qwen3-4b whole in
   f32 on both planes of trace (b), held to B = 1;
+- (l) single-device training, no kernel on its path (each part's
+  counts must stay 0): (l0) qwen2-1.5b whole (28 layers, bf16, AdamW)
+  for 30 steps of 8 x 256 synthetic tokens, the loss falling, ms a
+  step, tokens/s and peak memory, one step profiled; (l1) its first 2
+  layers at full width in f32, the card's loss and every gradient leaf
+  against the CPU's, one AdamW update from the CPU's gradients on both,
+  and (outside the counts) ``forward``'s logits against the
+  ``flash_prefill`` prefill's; (l2) microbatches 2 with remat against
+  one batch; (l3) 10 steps straight against 5, an ``async_save``, a
+  simulated failure, ``run_resilient``'s restore (bit-equal, bf16
+  leaves included) and 5 more; (l4) the launcher with a checkpoint,
+  then ``--resume``; (l5) every other family at full width for 5 steps
+  on one batch, the loss falling (deepseek-v2 on its dense and one moe
+  layer with Adafactor, recurrentgemma-9b on one rglru, rglru,
+  attention group; h2o-danube past its window with remat, paligemma
+  with 256 patches under the prefix-LM mask, mamba2, whisper over 1500
+  frames whole);
 
 and checks what comes out. Every phase is checked; any failure exits
 non-zero. The last line of standard output is
@@ -3445,6 +3462,381 @@ def qwen3_phase(dev, add) -> None:
     log(f"[family] phase (k4): {time.perf_counter() - t0:.1f} s")
 
 
+# ======================================================================
+# (l) single-device training
+# ======================================================================
+TRAIN_B, TRAIN_S = 8, 256          # (l0), (l3), (l4): 2048 tokens a step
+# (l5): the other families at full width, their depth cut only where
+# memory forces it; (layers or None for whole, B, text S, remat)
+L5_RUNS = (("h2o-danube-1.8b", None, 1, 4160, True),
+           ("mamba2-1.3b", None, 2, 512, False),
+           ("paligemma-3b", None, 2, 128, False),
+           ("deepseek-v2-236b", 2, 2, 256, False),
+           ("recurrentgemma-9b", 3, 2, 512, False),
+           ("whisper-tiny", None, 2, 64, False))
+
+
+def smoke_dir() -> Path:
+    """A fresh directory for checkpoints under the checkout (git
+    ignores ``.smoke_ckpt_*``), removed by the caller."""
+    import tempfile
+    return Path(tempfile.mkdtemp(prefix=".smoke_ckpt_", dir=ROOT))
+
+
+def train_setup(cfg, dev, full=None):
+    """(params, opt, opt_state): ``cfg``'s weights from a generator on
+    ``dev`` seeded with SEED, and the optimizer ``select_optimizer``
+    picks for ``full`` (the whole config a cut one comes from)."""
+    from repro_torch.models.model import init_params
+    from repro_torch.training import optimizer as O
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+    opt = O.select_optimizer(full or cfg)
+    return params, opt, O.opt_init(opt, params)
+
+
+def timed_steps(step, params, state, batches, n):
+    """``n`` synchronized steps; returns (params, state, losses, grad
+    norms, ms a step)."""
+    losses, norms, ms = [], [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, state, m = step(params, state, next(batches))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        ms.append((time.perf_counter() - t) * 1e3)
+    return params, state, losses, norms, ms
+
+
+def train_whole_phase(dev) -> dict:
+    """(l0) qwen2-1.5b whole (28 layers, bf16, AdamW) on
+    ``synthetic_batches(seed=0)``, 30 steps of B 8 x S 256: every loss
+    and grad norm finite, the last five steps' mean loss below the first
+    five's; ms a step (median of steps 5-29), tokens/s, peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.training.data import synthetic_batches
+    from repro_torch.training.train_loop import TrainConfig, build_train_step
+    t0 = time.perf_counter()
+    cfg = get_config("qwen2-1.5b")
+    params, opt, state = train_setup(cfg, dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    check(cfg.num_layers == 28 and opt.kind == "adamw"
+          and params["embed"].dtype == torch.bfloat16,
+          "(l0) not full-width qwen2-1.5b in bf16 with AdamW")
+    step = build_train_step(cfg, opt, TrainConfig(remat=False))
+    torch.cuda.reset_peak_memory_stats()
+    params, state, losses, norms, ms = timed_steps(
+        step, params, state,
+        synthetic_batches(cfg.vocab_size, TRAIN_B, TRAIN_S, seed=0), 30)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(map(math.isfinite, losses + norms)),
+          f"(l0) non-finite: losses {losses}, grad norms {norms}")
+    first, last = np.mean(losses[:5]), np.mean(losses[25:])
+    check(last < first, f"(l0) loss did not fall: {first} -> {last}")
+    med = float(np.median(ms[5:]))
+    log(f"[train] (l0) {cfg.name}, {cfg.num_layers} layers, "
+        f"{n_params / 1e9:.3f} B parameters in bf16, {opt.kind}, B "
+        f"{TRAIN_B} x S {TRAIN_S}: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+        f"(mean of steps 0-4 {first:.4f}, 25-29 {last:.4f}); grad norm "
+        f"{norms[0]:.2f} -> {norms[-1]:.2f}; {med:.2f} ms a step (median "
+        f"of 5-29; step 0 {ms[0]:.1f} ms), "
+        f"{TRAIN_B * TRAIN_S / med * 1e3:.0f} tokens/s, peak "
+        f"{peak / 2 ** 30:.2f} GiB; {time.perf_counter() - t0:.1f} s")
+    # where a step's time goes: the products (cuBLAS names its Hopper
+    # GEMMs nvjet_*), and the optimizer's kernels
+    from repro_torch.training import optimizer as O
+    batch = next(synthetic_batches(cfg.vocab_size, TRAIN_B, TRAIN_S,
+                                   seed=1))
+    profile_call("(l0) one train step", lambda: step(params, state, batch),
+                 {"GEMMs (nvjet)": "nvjet", "GEMMs (gemm)": "gemm"},
+                 ranges=[(O, "opt_update")])
+    del params, state, step
+    free_device()
+    return dict(ms=med, tokens_s=TRAIN_B * TRAIN_S / med * 1e3,
+                peak_gib=peak / 2 ** 30)
+
+
+def grads_err(got, want) -> tuple:
+    """(worst leaf's max |error| over its max |value|, its index)."""
+    worst = (-1.0, None)
+    for i, (g, w) in enumerate(zip(_leaves(got), _leaves(want))):
+        err = (g.cpu().float() - w.cpu().float()).abs().max().item() / max(
+            w.float().abs().max().item(), 1e-30)
+        worst = max(worst, (err, i), key=lambda e: e[0])
+    return worst
+
+
+def cut_twin(dev):
+    """(l1)'s model: qwen2-1.5b's first 2 of 28 layers at full width in
+    f32, and a copy of its weights on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.training.optimizer import tree_map
+    cfg = get_config("qwen2-1.5b").replace(num_layers=2,
+                                           param_dtype="float32",
+                                           dtype="float32")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+    return cfg, params, tree_map(lambda t: t.cpu(), params)
+
+
+def train_twin_phase(dev) -> dict:
+    """(l1) the card's step against the CPU's on the same weights and
+    batch: qwen2-1.5b's first 2 layers at full width, f32, B 2 x S 64;
+    loss within 1e-5 relative, every gradient leaf within 1e-4 of its
+    largest |value|; then one AdamW update from the CPU's gradients on
+    both devices, parameters within 1e-6 of each leaf's largest |value|
+    (each device's own gradients would not do: Adam's first step is
+    about sign(g), and a near-zero gradient whose sign the sums round
+    apart moves its weight by 2 lr). (l2) on the same cut, a batch of 4
+    at microbatches 2 with remat against one batch without: loss within
+    1e-5 relative, gradients as in (l1)."""
+    from repro_torch.training import optimizer as O
+    from repro_torch.training.data import synthetic_batches
+    from repro_torch.training.train_loop import (TrainConfig, batch_to,
+                                                 loss_and_grads, step_grads)
+    t0 = time.perf_counter()
+    cfg, params, cpu_params = cut_twin(dev)
+    batch = next(synthetic_batches(cfg.vocab_size, 2, 64, seed=1))
+    loss, _, grads = loss_and_grads(cfg, params, batch_to(batch, dev))
+    cpu_loss, _, cpu_grads = loss_and_grads(cfg, cpu_params,
+                                            batch_to(batch, "cpu"))
+    rel = abs(loss.item() - cpu_loss.item()) / abs(cpu_loss.item())
+    g_err, g_leaf = grads_err(grads, cpu_grads)
+    log(f"[train] (l1) {cfg.name} 2 of 28 layers, f32, B 2 x S 64: loss "
+        f"card {loss.item():.6f} cpu {cpu_loss.item():.6f} (rel "
+        f"{rel:.2e}); worst gradient leaf #{g_leaf} {g_err:.2e} of its max")
+    check(rel <= 1e-5, f"(l1) loss rel {rel}")
+    check(g_err <= 1e-4, f"(l1) gradient leaf #{g_leaf}: {g_err}")
+    del grads
+    opt = O.OptConfig()
+    state, cpu_state = O.opt_init(opt, params), O.opt_init(opt, cpu_params)
+    O.opt_update(opt, O.tree_map(lambda g: g.to(dev), cpu_grads), state,
+                 params)
+    O.opt_update(opt, cpu_grads, cpu_state, cpu_params)
+    p_err, p_leaf = grads_err(params, cpu_params)
+    log(f"[train] (l1) one AdamW update from the CPU's gradients: worst "
+        f"parameter leaf #{p_leaf} {p_err:.2e} of its max")
+    check(p_err <= 1e-6, f"(l1) parameter leaf #{p_leaf}: {p_err}")
+    del state, cpu_state, cpu_grads
+    # (l2) microbatches and remat against one plain batch, on the card
+    batch4 = batch_to(next(synthetic_batches(cfg.vocab_size, 4, 64,
+                                             seed=2)), dev)
+    l_mb, g_mb = step_grads(cfg, params, batch4,
+                            TrainConfig(microbatches=2, remat=True))
+    l_one, g_one = step_grads(cfg, params, batch4,
+                              TrainConfig(microbatches=1, remat=False))
+    rel2 = abs(l_mb.item() - l_one.item()) / abs(l_one.item())
+    e2, leaf2 = grads_err(g_mb, g_one)
+    log(f"[train] (l2) microbatches 2 + remat vs 1, B 4: loss {l_mb.item():.6f}"
+        f" vs {l_one.item():.6f} (rel {rel2:.2e}); worst gradient leaf "
+        f"#{leaf2} {e2:.2e} of its max; {time.perf_counter() - t0:.1f} s")
+    check(rel2 <= 1e-5, f"(l2) loss rel {rel2}")
+    check(e2 <= 1e-4, f"(l2) gradient leaf #{leaf2}: {e2}")
+    return dict(cfg=cfg, params=params, l1_loss_rel=rel, l1_grad=g_err,
+                l1_param=p_err, l2_loss_rel=rel2, l2_grad=e2)
+
+
+def train_vs_prefill(twin) -> None:
+    """(l1) ``forward``'s logits at S-2 against ``prefill``'s last logits
+    through ``flash_prefill`` on the same weights (the cut, f32): the
+    kernel held against the training graph. Run outside (l)'s count: a
+    comparison, not the training path."""
+    from repro_torch.models.model import forward, init_cache, prefill
+    cfg, params = twin["cfg"], twin["params"]
+    dev = params["embed"].device
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (2, 256))).to(dev)
+    with torch.no_grad():
+        full, _ = forward(cfg, params, toks)
+        last, _ = prefill(cfg, params, toks[:, :-1],
+                          init_cache(cfg, 2, 256, dev))
+    logits_vs_plain("(l1) prefill (flash_prefill) vs forward at S-2",
+                    last, full[:, -2], torch.float32)
+
+
+def train_resume_phase(dev) -> dict:
+    """(l3) (l0)'s setup for 10 steps straight, against 5 steps, an
+    ``async_save``, a simulated failure, ``run_resilient``'s restart from
+    the checkpoint into fresh tensors (bit-equal to the saved ones, bf16
+    leaves included) and 5 more steps: losses within 1e-3 relative (the
+    embedding's scatter-add on the card is not ordered)."""
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.fault_tolerance import run_resilient
+    from repro_torch.training.checkpoint import (latest_step,
+                                                 restore_checkpoint,
+                                                 save_checkpoint)
+    from repro_torch.training.data import synthetic_batches
+    from repro_torch.training.train_loop import TrainConfig, build_train_step
+    t0 = time.perf_counter()
+    cfg = get_config("qwen2-1.5b")
+    params, opt, state = train_setup(cfg, dev)
+    step = build_train_step(cfg, opt, TrainConfig(remat=False))
+    data = synthetic_batches(cfg.vocab_size, TRAIN_B, TRAIN_S, seed=0)
+    params, state, straight, _, _ = timed_steps(step, params, state, data, 10)
+    del params, state
+    free_device()
+    ck = smoke_dir()
+    run = {"failed": 0, "losses": []}
+    data = synthetic_batches(cfg.vocab_size, TRAIN_B, TRAIN_S, seed=0)
+    try:
+        def train_once(start):
+            if start == 0:
+                p, _, s = train_setup(cfg, dev)
+                p, s, losses, _, _ = timed_steps(step, p, s, data, 5)
+                run["losses"] += losses
+                t = time.perf_counter()
+                save_checkpoint(str(ck), 5, p, s, async_save=True).join()
+                run["save_s"] = time.perf_counter() - t
+                run["saved"] = (_leaves(p), _leaves(s))
+                run["failed"] += 1
+                raise RuntimeError("simulated failure after step 5")
+            t = time.perf_counter()
+            tree, at = restore_checkpoint(str(ck), start, device=dev)
+            torch.cuda.synchronize()
+            run["restore_s"] = time.perf_counter() - t
+            p, s = tree["params"], tree["opt_state"]
+            saved_p, saved_s = run.pop("saved")
+            check(all(a.dtype == b.dtype and torch.equal(a, b) for a, b in
+                      zip(_leaves(p) + _leaves(s), saved_p + saved_s)),
+                  "(l3) the restored state differs from the saved state")
+            check(p["embed"].dtype == torch.bfloat16
+                  and int(s["step"]) == at == 5, "(l3) restored tree")
+            del saved_p, saved_s
+            free_device()
+            p, s, losses, _, _ = timed_steps(step, p, s, data, 5)
+            run["losses"] += losses
+            return start + 5
+
+        def on_failure(e, restarts):
+            check("simulated failure" in str(e),
+                  f"(l3) an unexpected failure: {e!r}")
+            return latest_step(str(ck))
+
+        last = run_resilient(train_once, max_restarts=1,
+                             on_failure=on_failure)
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    check(run["failed"] == 1 and last == 10, f"(l3) run_resilient: {run}")
+    gaps = [abs(a - b) / abs(b) for a, b in zip(run["losses"], straight)]
+    log(f"[train] (l3) 10 steps straight vs 5 + async_save + a simulated "
+        f"failure + run_resilient's restore (bit-equal, bf16 leaves "
+        f"included) + 5: largest loss gap {max(gaps):.2e} relative (at step "
+        f"{int(np.argmax(gaps))}); save {run['save_s']:.1f} s, restore "
+        f"{run['restore_s']:.1f} s; {time.perf_counter() - t0:.1f} s")
+    check(max(gaps) <= 1e-3, f"(l3) losses {run['losses']} vs {straight}")
+    free_device()
+    return dict(gap=max(gaps), save_s=run["save_s"],
+                restore_s=run["restore_s"])
+
+
+def train_launcher_phase() -> None:
+    """(l4) ``python -m repro_torch.launch.train`` at qwen2-1.5b: 20
+    steps of B 8 x S 256 with a checkpoint, then ``--resume`` for 5: both
+    exit 0, the second prints ``resumed from step 20``."""
+    import os
+    import shutil
+    t0 = time.perf_counter()
+    ck = smoke_dir()
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            "qwen2-1.5b", "--batch", str(TRAIN_B), "--seq", str(TRAIN_S),
+            "--ckpt-dir", str(ck)]
+    try:
+        outs = []
+        for extra in (["--steps", "20"], ["--resume", "--steps", "5"]):
+            out = subprocess.run(base + extra, capture_output=True,
+                                 text=True, timeout=300, cwd=ROOT,
+                                 env=dict(os.environ,
+                                          PYTHONPATH=str(ROOT / "src")))
+            check(out.returncode == 0, f"(l4) {' '.join(extra)} exited "
+                  f"{out.returncode}: {out.stderr[-2000:]}")
+            outs.append(out.stdout)
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    check("resumed from step 20" in outs[1] and "resumed" not in outs[0],
+          f"(l4) --resume printed {outs[1]!r}")
+    last = [ln.split() for ln in outs[1].splitlines() if ln.startswith(
+        "step")][-1]
+    log(f"[train] (l4) the launcher at qwen2-1.5b: 20 steps with a "
+        f"checkpoint, then --resume (resumed from step 20) for 5; last "
+        f"{' '.join(last)}; {time.perf_counter() - t0:.1f} s")
+
+
+def train_families_phase(dev) -> list:
+    """(l5) every other family at full width, 5 steps on one repeated
+    batch, depth cut only where memory forces it: the loss falls, and
+    every loss and grad norm is finite."""
+    import itertools
+    from repro_torch.configs import get_config
+    from repro_torch.training.train_loop import TrainConfig, build_train_step
+    rows = []
+    for name, layers, B, S, remat in L5_RUNS:
+        t0 = time.perf_counter()
+        full = get_config(name)
+        cfg = full if layers is None else full.replace(num_layers=layers)
+        params, opt, state = train_setup(cfg, dev, full)
+        rng = np.random.default_rng(SEED)
+        toks = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+        batch = {"tokens": toks, "labels": np.roll(toks, -1, axis=1)}
+        if cfg.frontend == "vision":
+            batch["patches"] = rng.standard_normal(
+                (B, cfg.frontend_len, cfg.d_model)).astype(np.float32)
+            batch["prefix_len"] = np.full((B,), cfg.frontend_len, np.int32)
+        if cfg.family == "encdec":
+            batch["frames"] = rng.standard_normal(
+                (B, cfg.encoder.num_frames, cfg.d_model)).astype(np.float32)
+        step = build_train_step(cfg, opt, TrainConfig(remat=remat))
+        torch.cuda.reset_peak_memory_stats()
+        n_params = sum(t.numel() for t in _leaves(params))
+        params, state, losses, norms, ms = timed_steps(
+            step, params, state, itertools.repeat(batch), 5)
+        peak = torch.cuda.max_memory_allocated()
+        check(all(map(math.isfinite, losses + norms)),
+              f"(l5) {name}: losses {losses}, grad norms {norms}")
+        check(losses[-1] < losses[0], f"(l5) {name}: loss did not fall "
+              f"{losses}")
+        med = float(np.median(ms[1:]))
+        what = "whole" if layers is None else \
+            f"{layers} of {full.num_layers} layers"
+        log(f"[train] (l5) {name} ({what}, {n_params / 1e9:.3f} B "
+            f"parameters, {opt.kind}{', remat' if remat else ''}), B {B} x "
+            f"S {S}{' + ' + str(cfg.frontend_len) + ' patches' if cfg.frontend == 'vision' else ''}"
+            f"{' + ' + str(cfg.encoder.num_frames) + ' frames' if cfg.family == 'encdec' else ''}: "
+            f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; {med:.1f} ms a step "
+            f"(median of 1-4), peak {peak / 2 ** 30:.2f} GiB; "
+            f"{time.perf_counter() - t0:.1f} s")
+        rows.append(dict(name=name, ms=med, peak_gib=peak / 2 ** 30))
+        del params, state, step
+        free_device()
+    return rows
+
+
+def training_phase(dev) -> dict:
+    """(l) single-device training, each part with the kernels' counts
+    zeroed just before it and read just after: no kernel is on the
+    training path, so every count must stay 0. (l1)'s prefill check
+    launches ``flash_prefill`` between the parts, outside the counts."""
+    out = {}
+    for tag, fn, args in (("(l0) qwen2-1.5b whole", train_whole_phase,
+                           (dev,)),
+                          ("(l1)+(l2) card vs CPU, microbatches",
+                           train_twin_phase, (dev,)),
+                          ("(l3) resume", train_resume_phase, (dev,)),
+                          ("(l4) launcher", train_launcher_phase, ()),
+                          ("(l5) families", train_families_phase, (dev,))):
+        out[tag[:4]], counts = main_path(f"training {tag}", fn, *args)
+        check(not any(counts.values()),
+              f"training {tag}: kernel launches {counts}, expected none")
+        if tag.startswith("(l1)"):
+            twin = out["(l1)"]
+            train_vs_prefill(twin)
+            del twin["params"], twin["cfg"]
+            free_device()
+    return out
+
+
 def cast_params(tree, dtype, parent=None, key=None):
     """Every leaf to ``dtype`` (no copy where it already is), except the
     leaves that stay f32 at any type (the mixer's, the router, the
@@ -3658,6 +4050,10 @@ def main() -> int:
         check(n > 0, f"{name} never launched on a main path")
         dim_rows[name]["launches"] = n
     log(f"[family] phase (k): {time.perf_counter() - t_k:.1f} s")
+    # (l) single-device training: no kernel is on its path
+    t_l = time.perf_counter()
+    training_phase(dev)
+    log(f"[train] phase (l): {time.perf_counter() - t_l:.1f} s")
     for name, n in total.items():
         check(n > 0, f"{name} never launched on a main path")
         rows[name]["launches"] = n

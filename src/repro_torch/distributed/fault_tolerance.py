@@ -1,20 +1,44 @@
-"""Fault tolerance for the serving fleet (DESIGN.md §8, §12).
+"""Fault tolerance (DESIGN.md §8, §12).
 
+- ``run_resilient``: the checkpoint/restart supervisor of training — a
+  (simulated or real) failure restarts training from the last atomic
+  checkpoint.
 - ``StragglerMitigator``: per-round deadline tracking for the serving
   engines — a round exceeding ``deadline_factor`` x the rolling median
   marks the source straggling; the fleet router drains a replica that
   keeps straggling and lifts the drain once it recovers.
 
-The reference module's ``run_resilient`` (checkpoint/restart) and
-``elastic_rescale`` (re-place checkpointed state on a resized mesh)
-belong to training and wait for its port (ROADMAP.md queue 1 item 7).
+The reference module's ``elastic_rescale`` (re-place checkpointed state
+on a resized mesh) waits for the mesh half of training (ROADMAP.md
+queue 1 item 7).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List
+from typing import Callable, List, Optional
 
 import numpy as np
+
+
+def run_resilient(train_once: Callable[[int], int], *, max_restarts: int = 3,
+                  on_failure: Optional[Callable] = None) -> int:
+    """Run ``train_once(start_step) -> last_step`` with restart-on-failure.
+
+    ``train_once`` is expected to checkpoint; a raised exception triggers
+    restore-from-latest and retry (the checkpoint/restart contract):
+    ``on_failure(exc, restarts)`` returns the step to start again from.
+    """
+    restarts = 0
+    start = 0
+    while True:
+        try:
+            return train_once(start)
+        except Exception as e:           # noqa: BLE001 — supervisor
+            restarts += 1
+            if on_failure is not None:
+                start = on_failure(e, restarts)
+            if restarts > max_restarts:
+                raise
 
 
 @dataclass

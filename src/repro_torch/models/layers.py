@@ -3,8 +3,10 @@ tensors, in the JAX package's pytree layout (``[d, H, hd]`` projection
 weights, ``1 + w`` RMSNorm scales) so weights carry across one to one.
 
 ``gqa_attention`` is the reference's einsum attention under a boolean
-mask; the ring-cache decode uses it over the cache's W slots. Prefill
-and the paged engine attend through the hand-written kernels in
+mask; the ring-cache decode uses it over the cache's W slots, and the
+training graph (``models/model.py::forward``) and a prefix-LM prefill
+over their whole sequence, as the reference does. Prefill and the paged
+engine attend through the hand-written kernels in
 ``repro_torch.kernels``.
 """
 from __future__ import annotations
@@ -75,16 +77,20 @@ NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 
 def attention_mask(q_pos, kv_pos, *, causal: bool, window=None,
-                   kv_valid=None):
+                   kv_valid=None, prefix_len=None):
     """Boolean [B, Sq, Skv] mask (True = attend). q_pos [B, Sq] and
     kv_pos [B, Skv] are absolute positions; ``window`` keeps
-    ``q - k < window``."""
+    ``q - k < window``; ``prefix_len`` [B] is the prefix-LM boundary:
+    bidirectional within the prefix, causal after it."""
     q = q_pos[:, :, None]
     k = kv_pos[:, None, :]
     mask = torch.ones(torch.broadcast_shapes(q.shape, k.shape),
                       dtype=torch.bool, device=q_pos.device)
     if causal:
-        mask = mask & (k <= q)
+        c = k <= q
+        if prefix_len is not None:
+            c = c | (k < prefix_len[:, None, None])
+        mask = mask & c
     if window is not None:
         mask = mask & (q - k < window)
     if kv_valid is not None:
@@ -92,19 +98,19 @@ def attention_mask(q_pos, kv_pos, *, causal: bool, window=None,
     return mask
 
 
-def gqa_attention(q, k, v, mask):
-    """Grouped-query attention, q [B, Sq, Hq, D], k/v [B, Skv, Hkv, D],
-    mask [B, Sq, Skv] bool -> [B, Sq, Hq, D]. Logits and softmax in f32
-    (the reference's ``preferred_element_type``), probabilities cast to
-    v's dtype for the value product."""
+def gqa_attention(q, k, v, mask, *, scale=None):
+    """Grouped-query attention, q [B, Sq, Hq, D], k/v [B, Skv, Hkv, D]
+    (v may be narrower), mask [B, Sq, Skv] bool -> [B, Sq, Hq, Dv].
+    Logits and softmax in f32 (the reference's
+    ``preferred_element_type``), probabilities cast to v's dtype for the
+    value product. ``scale`` defaults to 1/sqrt(D)."""
     B, Sq, Hq, D = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv
     qg = q.reshape(B, Sq, Hkv, G, D)
-    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
-                          k.float()) / math.sqrt(D)
-    logits = torch.where(mask[:, None, None], logits,
-                         torch.tensor(NEG_INF, device=q.device))
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
+    logits = logits / math.sqrt(D) if scale is None else logits * scale
+    logits = logits.masked_fill(~mask[:, None, None], NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype), v)
     return out.reshape(B, Sq, Hq, v.shape[-1])

@@ -9,7 +9,8 @@ V, narrower, is padded with zero columns to that width and the output
 cut back, which is exact (a zero column adds nothing to any other). The
 kernel's scale, 1/sqrt(its head dim), is the reference's 1/sqrt(nope +
 rope). For every valid row this is the reference's masked attention,
-as the dense prefill's is (``models/model.py``).
+as the dense prefill's is (``models/model.py``). The training graph
+attends through the masked ``gqa_attention``, as the reference does.
 
 Decode uses the published absorption: W_uk is absorbed into the query
 and W_uv into the output, so attention runs directly against the
@@ -28,7 +29,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_prefill import flash_prefill
 from repro_torch.models.layers import NEG_INF, apply_rope, dense_init, \
-    rms_norm
+    gqa_attention, rms_norm
 
 
 def mla_init(generator, cfg, dtype, device):
@@ -79,11 +80,15 @@ def _project_kv_latent(params, cfg, x, positions):
     return ckv, k_rope
 
 
-def mla_forward(params, cfg, x, positions, *, plain: bool = False):
+def mla_forward(params, cfg, x, positions, *, plain: bool = False,
+                graph: str = "serve", mask=None):
     """The prefill path (decompressed), causal (and windowed where the
     config has a window) over the S tokens of x [B, S, d]. Returns (out
     [B, S, d], (ckv, k_rope)). ``plain`` takes ``flash_prefill``'s plain
-    version on any device."""
+    version on any device. ``graph`` "train" attends as the reference's
+    forward does, through ``gqa_attention`` under ``mask`` [B, S, S] at
+    scale 1/sqrt(nope + rope), with V unpadded: the training graph, and
+    a prefill under the prefix-LM mask, which the kernel lacks."""
     m = cfg.mla
     q_nope, q_rope = _project_q(params, cfg, x, positions)
     ckv, k_rope = _project_kv_latent(params, cfg, x, positions)
@@ -91,11 +96,17 @@ def mla_forward(params, cfg, x, positions, *, plain: bool = False):
     v = torch.einsum("bsr,rhe->bshe", ckv, params["w_uv"])
     H = cfg.num_heads
     qk_dim = m.nope_head_dim + m.rope_head_dim
+    k_rope_h = k_rope[:, :, None, :].expand(
+        k_rope.shape[:2] + (H, m.rope_head_dim))
+    if graph == "train":
+        out = gqa_attention(torch.cat([q_nope, q_rope], dim=-1),
+                            torch.cat([k_nope, k_rope_h], dim=-1), v, mask,
+                            scale=1.0 / math.sqrt(qk_dim))
+        out = torch.einsum("bshe,hed->bsd", out, params["wo"])
+        return out, (ckv, k_rope)
     if m.v_head_dim > qk_dim:
         raise ValueError(f"v_head_dim {m.v_head_dim} > nope + rope "
                          f"{qk_dim}: V cannot be padded to the kernel's D")
-    k_rope_h = k_rope[:, :, None, :].expand(
-        k_rope.shape[:2] + (H, m.rope_head_dim))
     # [B, H, S, D] for the kernel, V padded with zero columns to D
     q = torch.cat([q_nope, q_rope], dim=-1).transpose(1, 2).contiguous()
     k = torch.cat([k_nope, k_rope_h], dim=-1).transpose(1, 2).contiguous()

@@ -1,13 +1,14 @@
 """Model assembly: parameters, embedding, unembedding, the MLP block
-(dense or moe), the whisper encoder, and the ring-cache
-``prefill``/``decode_step`` of every family (those branches of the JAX
-package's ``models/model.py``): dense, moe, vlm, ssm, hybrid
-(RecurrentGemma's rglru/local-attention pattern) and encdec (whisper's
-decoder over an encoder's output), each attention layer either the
-grouped-query attention or, where the config has ``mla``, multi-head
-latent attention (``models/mla.py``; DeepSeek-V2's moe stack). The vlm
-family runs its text path: the stub modality frontend
-(``frontend_embeds`` and the prefix-LM mask) is not ported.
+(dense or moe), the whisper encoder, the teacher-forcing ``forward``
+and ``loss_fn`` of the training graph, and the ring-cache
+``prefill``/``decode_step`` of every family (the JAX package's
+``models/model.py``): dense, moe, vlm, ssm, hybrid (RecurrentGemma's
+rglru/local-attention pattern) and encdec (whisper's decoder over an
+encoder's output), each attention layer either the grouped-query
+attention or, where the config has ``mla``, multi-head latent attention
+(``models/mla.py``; DeepSeek-V2's moe stack). The vlm family's stub
+modality frontend prepends ``frontend_embeds`` (patch embeddings) to
+the tokens under the prefix-LM mask (``prefix_len``).
 
 Parameters are a dict of tensors in the JAX package's pytree layout:
 ``embed``, ``final_norm``, optional ``unembed``, ``layers`` and an
@@ -15,8 +16,19 @@ optional ``layers_pre`` list (the moe family's leading dense layers).
 ``layers`` is layer-stacked (every leaf has a leading ``[num_layers]``
 axis), except in the hybrid family, whose mixed layer kinds make it a
 list; the encdec family adds ``encoder`` (stacked layers and a final
-norm). The reference scans the stacked layers; the port loops over them
-(``layer_params``).
+norm). The reference scans the stacked layers; the port loops over
+``unbind``'s views of them (``layer_params``), so a training step's
+gradients land on the stacked ``[L, ...]`` leaves, as ``jax.grad``'s
+do.
+
+The training graph (``forward``, ``loss_fn``) is the reference's: every
+attention is the masked einsum ``gqa_attention`` (mla's at scale
+1/sqrt(nope + rope)), the mamba2 mixer scans with ``ssd_chunked`` and
+the RG-LRU out of place, all in torch ops that autograd differentiates;
+no hand-written kernel is on it, as no Pallas kernel is on the
+reference's. The moe layers' aux losses are summed over the stacked
+layers (the leading dense layers have none). ``remat`` checkpoints the
+per-layer body the reference wraps in ``jax.checkpoint``.
 
 KV caches are ring buffers of ``W`` slots (W = capacity, or the
 attention window for sliding-window and local-attention configs);
@@ -30,15 +42,20 @@ functionally; the port writes the cache it is given in place and
 returns it. Prefill attends through the
 ``flash_prefill`` kernel (causal, with the window where there is one;
 not causal over the encoder frames; mla's at nope + rope columns with V
-padded to them) and the ssm prefill scans through ``ssd_scan``; the
+padded to them), except under the prefix-LM mask, which the kernel
+does not take: such a prefill attends through ``gqa_attention`` as the
+reference does. The ssm prefill scans through ``ssd_scan``; the
 ring-cache decode attends with the plain ``gqa_attention`` (mla: the
-absorbed latent products), as the reference does outside any Pallas
-kernel.
+absorbed latent products), as the reference computes it outside any
+Pallas kernel.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_prefill import flash_prefill
@@ -60,9 +77,13 @@ def keeps_f32(parent, key) -> bool:
     return key in F32_LEAVES or f"{parent}/{key}" in F32_LEAVES
 
 
-def _not_ported(what: str) -> NotImplementedError:
+MOE_AUX_COEF = 0.01
+Z_LOSS_COEF = 1e-4
+
+
+def _not_ported(what: str, item: str = "6") -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue 1 item 6)")
+        f"{what} is not ported yet (ROADMAP.md queue 1 item {item})")
 
 
 def _check_ported(cfg) -> None:
@@ -228,14 +249,19 @@ def layer_params(params):
     stacked = params["layers"]
     if isinstance(stacked, list):
         return list(params.get("layers_pre", [])) + stacked
-    return list(params.get("layers_pre", [])) + [
-        _index(stacked, i) for i in range(stacked["ln1"].shape[0])]
+    return list(params.get("layers_pre", [])) + _unstack(stacked)
 
 
-def _index(tree, i):
+def _unstack(tree):
+    """A stacked layer tree as a list of per-layer trees of ``unbind``'s
+    views: under autograd its backward stacks the L gradients into one
+    ``[L, ...]`` tensor, where indexing layer by layer would add a
+    ``[L, ...]`` tensor of zeros for each layer."""
     if isinstance(tree, dict):
-        return {k: _index(v, i) for k, v in tree.items()}
-    return tree[i]
+        cols = {k: _unstack(v) for k, v in tree.items()}
+        n = len(next(iter(cols.values())))
+        return [{k: v[i] for k, v in cols.items()} for i in range(n)]
+    return list(torch.unbind(tree))
 
 
 # ======================================================================
@@ -257,14 +283,27 @@ def _logits(cfg, params, x):
     return logits
 
 
-def _mlp_block(cfg, lp, x, valid=None):
-    """The MLP half of a layer: dense, or the single-device moe (its aux
-    loss, a training term, is dropped), which routes only the tokens
-    ``valid`` [B, S] marks (None: all)."""
+def _mlp_aux(cfg, lp, x, valid=None):
+    """The MLP half of a layer and its aux loss: dense (aux None), or the
+    single-device moe, which routes only the tokens ``valid`` [B, S]
+    marks (None: all)."""
     h = L.rms_norm(x, lp["ln2"], cfg.rms_eps)
     if "moe" in lp:
-        return x + moe_mod.moe_apply(lp["moe"], h, cfg, valid=valid)[0]
-    return x + L.mlp_apply(lp["mlp"], h, cfg.mlp_kind)
+        y, aux = moe_mod.moe_apply(lp["moe"], h, cfg, valid=valid)
+        return x + y, aux
+    return x + L.mlp_apply(lp["mlp"], h, cfg.mlp_kind), None
+
+
+def _mlp_block(cfg, lp, x, valid=None):
+    """``_mlp_aux`` without the aux loss, a training term."""
+    return _mlp_aux(cfg, lp, x, valid)[0]
+
+
+def _frontend_concat(x_tok, frontend_embeds):
+    """Prepend the stub modality embeddings (vlm): [B, F + S, d]."""
+    if frontend_embeds is None:
+        return x_tok
+    return torch.cat([frontend_embeds.to(x_tok.dtype), x_tok], dim=1)
 
 
 def _cross_attention(lp, cfg, x, k, v, attend):
@@ -282,25 +321,153 @@ def _flash(attend, q, k, v, **kw):
                   v.transpose(1, 2).contiguous(), **kw).transpose(1, 2)
 
 
-def encode(cfg, params, frames, *, plain: bool = False):
+def encode(cfg, params, frames, *, plain: bool = False,
+           graph: str = "serve"):
     """The whisper encoder over stub frame embeddings [B, F, d]: the
     sinusoidal positions added, then non-causal self-attention layers
-    through ``flash_prefill`` (``plain``: its plain version)."""
+    through ``flash_prefill`` (``plain``: its plain version; ``graph``
+    "train": ``gqa_attention`` unmasked, as the reference's)."""
     enc = params["encoder"]
-    B, F, d = frames.shape
+    B, nf, d = frames.shape
     dt = cfg.activation_dtype()
-    x = frames.to(dt) + L.sinusoidal_positions(F, d, frames.device).to(dt)
-    positions = torch.arange(F, dtype=torch.int32,
-                             device=x.device).expand(B, F)
-    attend = ref.flash_prefill_ref if plain else flash_prefill
+    x = frames.to(dt) + L.sinusoidal_positions(nf, d, frames.device).to(dt)
+    positions = torch.arange(nf, dtype=torch.int32,
+                             device=x.device).expand(B, nf)
+    if graph == "train":
+        mask = torch.ones((B, nf, nf), dtype=torch.bool, device=x.device)
+
+        def attend(q, k, v):
+            return L.gqa_attention(q, k, v, mask)
+    else:
+        kernel = ref.flash_prefill_ref if plain else flash_prefill
+
+        def attend(q, k, v):
+            return _flash(kernel, q, k, v, causal=False)
     for lp in layer_params(enc):
         h = L.rms_norm(x, lp["ln1"], cfg.rms_eps)
         q, k, v = L.attn_project_qkv(lp["attn"], cfg, h, positions,
                                      rope=False)
-        x = x + L.attn_output(lp["attn"],
-                              _flash(attend, q, k, v, causal=False))
+        x = x + L.attn_output(lp["attn"], attend(q, k, v))
         x = _mlp_block(cfg, lp, x)
     return L.rms_norm(x, enc["final_norm"], cfg.rms_eps)
+
+
+# ======================================================================
+# teacher-forcing forward (the training graph)
+# ======================================================================
+def _attn_train(cfg, lp, x, positions, mask):
+    """A layer's attention half on the training graph: the masked
+    ``gqa_attention`` (mla: ``mla_forward``'s, at its scale)."""
+    h = L.rms_norm(x, lp["ln1"], cfg.rms_eps)
+    if cfg.mla is not None:
+        a, _ = mla_mod.mla_forward(lp["attn"], cfg, h, positions,
+                                   graph="train", mask=mask)
+        return x + a
+    q, k, v = L.attn_project_qkv(lp["attn"], cfg, h, positions)
+    return x + L.attn_output(lp["attn"], L.gqa_attention(q, k, v, mask))
+
+
+def forward(cfg, params, tokens, *, frontend_embeds=None, prefix_len=None,
+            enc_frames=None, mesh=None, remat: bool = False,
+            seq_spec=None):
+    """tokens [B, S_text] -> (logits [B, S_total, V] f32, aux loss f32
+    scalar), the reference's training graph. ``frontend_embeds`` [B, F,
+    d] are prepended (vlm) and ``prefix_len`` [B] makes the mask
+    bidirectional within the prefix; ``enc_frames`` [B, F, d] feed the
+    encoder (encdec). ``remat`` recomputes each stacked layer's body in
+    the backward (``torch.utils.checkpoint``), as the reference's
+    ``jax.checkpoint`` does; ``seq_spec`` (a sharding of the residual
+    stream) means nothing without a mesh and is ignored, as the
+    reference's is there. A mesh waits for the mesh half of training."""
+    _check_ported(cfg)
+    if mesh is not None:
+        raise _not_ported("forward over a mesh", "7")
+    x = _embed(cfg, params, tokens)
+    x = _frontend_concat(x, frontend_embeds)
+    B, S, _ = x.shape
+    dev = x.device
+    positions = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+    mask = L.attention_mask(positions, positions, causal=True,
+                            window=cfg.sliding_window, prefix_len=prefix_len)
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    fam = cfg.family
+
+    if fam == "hybrid":
+        local_mask = L.attention_mask(positions, positions, causal=True,
+                                      window=cfg.rglru.local_window)
+        for lp, kind in zip(params["layers"], cfg.block_kinds()):
+            if kind == "rglru":
+                h = L.rms_norm(x, lp["ln1"], cfg.rms_eps)
+                y, _ = rg.recurrent_block_forward(lp["rec"], cfg, h,
+                                                  graph="train")
+                x = x + y
+            else:
+                x = _attn_train(cfg, lp, x, positions, local_mask)
+            x = _mlp_block(cfg, lp, x)
+        return _logits(cfg, params, x), aux
+
+    if fam == "encdec":
+        enc_out = encode(cfg, params, enc_frames, graph="train")
+        xmask = torch.ones((B, S, enc_out.shape[1]), dtype=torch.bool,
+                           device=dev)
+
+    def body(h, lp):
+        """One stacked layer; returns (h, aux or None)."""
+        if fam == "ssm":
+            y, _ = ssm_mod.mamba2_forward(
+                lp["mixer"], cfg, L.rms_norm(h, lp["ln1"], cfg.rms_eps),
+                graph="train")
+            return h + y, None
+        h = _attn_train(cfg, lp, h, positions, mask)
+        if fam == "encdec":
+            kx = torch.einsum("bsd,dhe->bshe", enc_out, lp["xattn"]["wk"])
+            vx = torch.einsum("bsd,dhe->bshe", enc_out, lp["xattn"]["wv"])
+            h = _cross_attention(
+                lp, cfg, h, kx, vx,
+                lambda q, k, v: L.gqa_attention(q, k, v, xmask))
+        return _mlp_aux(cfg, lp, h)
+
+    for lp in params.get("layers_pre", []):
+        # the leading dense layers: outside the remat, their aux dropped
+        x = _mlp_block(cfg, lp, _attn_train(cfg, lp, x, positions, mask))
+    for lp in _unstack(params["layers"]):
+        if remat:
+            x, a = checkpoint(body, x, lp, use_reentrant=False)
+        else:
+            x, a = body(x, lp)
+        if a is not None:
+            aux = aux + a
+    return _logits(cfg, params, x), aux
+
+
+def loss_fn(cfg, params, batch, *, mesh=None, remat: bool = False,
+            seq_spec=None):
+    """batch: ``tokens`` [B, S], ``labels`` [B, S], optional ``weights``
+    [B, S], ``patches`` [B, F, d] with ``prefix_len`` [B] (vlm) and
+    ``frames`` [B, F, d] (encdec). Returns (loss, {"ce", "aux"}): the
+    label-weighted cross-entropy over the text positions plus
+    ``Z_LOSS_COEF`` times the weighted mean squared log-partition and
+    ``MOE_AUX_COEF`` times the moe aux loss, in f32."""
+    logits, aux = forward(
+        cfg, params, batch["tokens"],
+        frontend_embeds=batch.get("patches"),
+        enc_frames=batch.get("frames"),
+        prefix_len=batch.get("prefix_len"),
+        mesh=mesh, remat=remat, seq_spec=seq_spec)
+    labels = batch["labels"]
+    # the frontend's positions carry no labels
+    logits = logits[:, logits.shape[1] - labels.shape[1]:]
+    logp = F.log_softmax(logits, dim=-1)
+    ll = logp.gather(-1, labels[..., None].long())[..., 0]
+    w = batch.get("weights")
+    if w is None:
+        w = torch.ones_like(ll)
+    denom = torch.clamp(w.sum(), min=1.0)
+    ce = -(ll * w).sum() / denom
+    # the z-loss stabiliser
+    z = (torch.logsumexp(logits, dim=-1).square() * w).sum()
+    total = ce + Z_LOSS_COEF * z / denom + MOE_AUX_COEF * aux
+    return total, {"ce": ce, "aux": aux}
 
 
 # ======================================================================
@@ -405,15 +572,20 @@ def prefill(cfg, params, tokens, cache, *, seq_lens=None, prefix_len=None,
     are not the reference's (no key past a row's length is masked), so
     neither is such a row's state. ``plain`` (tests and the chip check
     only) runs the kernels' plain versions on any device, to hold the
-    kernels' prefill against it; it is never a fallback."""
-    if prefix_len is not None:
-        raise _not_ported("prefix_len (the prefix-LM mask)")
-    if frontend_embeds is not None:
-        raise _not_ported("frontend_embeds (the stub modality frontend)")
+    kernels' prefill against it; it is never a fallback.
+
+    ``frontend_embeds`` [B, F, d] (vlm) are prepended to the tokens;
+    ``seq_lens`` then counts them too. ``prefix_len`` [B] makes the
+    self-attention bidirectional within the prefix (the prefix-LM
+    mask). ``flash_prefill`` has no such mask, nor has the TPU kernel it
+    ports, so under it the attention layers take the reference's own
+    path: the masked ``gqa_attention`` (mla: ``mla_forward``'s training
+    graph), over the whole sequence. The hybrid's local attention and
+    the ssm mixer take no prefix, as in the reference."""
     if (cfg.family == "encdec") != (enc_frames is not None):
         raise ValueError("enc_frames is required for the encdec family, "
                          "and only for it")
-    x = _embed(cfg, params, tokens)
+    x = _frontend_concat(_embed(cfg, params, tokens), frontend_embeds)
     B, S, _ = x.shape
     dev = x.device
     full = seq_lens is None
@@ -453,6 +625,11 @@ def prefill(cfg, params, tokens, cache, *, seq_lens=None, prefix_len=None,
         attend = ref.flash_prefill_ref if plain else flash_prefill
         window = cfg.rglru.local_window if cfg.family == "hybrid" \
             else cfg.sliding_window
+        pmask = None
+        if prefix_len is not None and cfg.family != "hybrid":
+            pmask = L.attention_mask(
+                positions, positions, causal=True, window=window,
+                prefix_len=prefix_len) & valid[:, None, :]
         if enc_frames is not None:
             enc_out = encode(cfg, params, enc_frames, plain=plain)
         ai = ri = 0
@@ -466,15 +643,19 @@ def prefill(cfg, params, tokens, cache, *, seq_lens=None, prefix_len=None,
                 x = x + y
                 ri += 1
             elif cfg.mla is not None:
-                a, (ckv, kr) = mla_mod.mla_forward(lp["attn"], cfg, h,
-                                                   positions, plain=plain)
+                a, (ckv, kr) = mla_mod.mla_forward(
+                    lp["attn"], cfg, h, positions, plain=plain,
+                    graph="serve" if pmask is None else "train", mask=pmask)
                 x = x + a
                 write(cache["ckv"][ai], ckv)
                 write(cache["k_rope"][ai], kr)
                 ai += 1
             else:
                 q, k, v = L.attn_project_qkv(lp["attn"], cfg, h, positions)
-                a = _flash(attend, q, k, v, causal=True, window=window)
+                if pmask is None:
+                    a = _flash(attend, q, k, v, causal=True, window=window)
+                else:
+                    a = L.gqa_attention(q, k, v, pmask)
                 x = x + L.attn_output(lp["attn"], a)
                 write(cache["k"][ai], k)
                 write(cache["v"][ai], v)

@@ -10,8 +10,11 @@ Prefill scans the recurrence over the sequence in f32 as a log-step
 (Hillis-Steele) scan: ceil(log2 S) passes over ``[B, S, w]``, each two
 elementwise ops between a pair of buffers, where the reference runs
 ``jax.lax.associative_scan`` (a different tree of the same associative
-combine, so the two agree to f32 rounding). Decode is one recurrence
-step.
+combine, so the two agree to f32 rounding). The prefill's scan writes
+through ``out=`` into buffers it reuses, which autograd refuses; the
+training graph (``graph="train"``) takes ``_linear_scan_train``, the
+same passes in the same combine order out of place, which gives the
+same values bit for bit. Decode is one recurrence step.
 """
 from __future__ import annotations
 
@@ -94,10 +97,28 @@ def _linear_scan(a, b):
     return a, b
 
 
-def rglru_scan(params, x, h0=None):
-    """x [b, s, w] -> (y [b, s, w] f32, h_last [b, w] f32)."""
+def _linear_scan_train(a, b):
+    """``_linear_scan`` out of place, for autograd: each pass builds new
+    tensors from the same products in the same order, so the values are
+    ``_linear_scan``'s bit for bit; ``a`` and ``b`` are left as they
+    are."""
+    S = a.shape[1]
+    step = 1
+    while step < S:
+        b = torch.cat([b[:, :step],
+                       torch.addcmul(b[:, step:], a[:, step:], b[:, :-step])],
+                      dim=1)
+        a = torch.cat([a[:, :step], a[:, step:] * a[:, :-step]], dim=1)
+        step *= 2
+    return a, b
+
+
+def rglru_scan(params, x, h0=None, *, graph: str = "serve"):
+    """x [b, s, w] -> (y [b, s, w] f32, h_last [b, w] f32). ``graph``
+    "train" scans out of place (``_linear_scan_train``)."""
     log_a, gated = _gates(params, x)
-    aa, y = _linear_scan(torch.exp(log_a), gated)
+    scan = _linear_scan_train if graph == "train" else _linear_scan
+    aa, y = scan(torch.exp(log_a), gated)
     if h0 is not None:
         y = y + aa * h0[:, None, :]
     return y, y[:, -1, :]
@@ -117,12 +138,13 @@ def _gate_and_conv(params, x, conv_cache):
     return gate, rec + params["conv_b"], conv_cache
 
 
-def recurrent_block_forward(params, cfg, x):
+def recurrent_block_forward(params, cfg, x, *, graph: str = "serve"):
     """The Griffin recurrent block over a prompt, from an empty conv cache
     and a zero state: (gelu gate) * (conv -> RG-LRU). Returns (out,
-    (conv_cache, h_last))."""
+    (conv_cache, h_last)). ``graph`` "train": the training graph's
+    out-of-place scan."""
     gate, rec, conv_cache = _gate_and_conv(params, x, None)
-    y, h_last = rglru_scan(params, rec)
+    y, h_last = rglru_scan(params, rec, graph=graph)
     out = (gate * y.to(x.dtype)) @ params["out"]
     return out, (conv_cache, h_last)
 

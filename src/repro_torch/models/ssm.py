@@ -5,7 +5,8 @@ of the JAX package's ``models/ssm.py``).
 listing 1), written out as the reference writes it: it is the plain
 version of the ``ssd_scan`` kernel, which ``mamba2_forward`` calls for
 the scan (the prefill always starts from a zero state, the kernel's
-contract).
+contract), and the training graph's scan, which autograd
+differentiates (the kernel has no backward; nor has the reference's).
 
 Projections are kept as separate matrices (w_z / w_x / w_B / w_C / w_dt
 and separate depthwise convs for x vs B/C), so the reference's weights
@@ -28,7 +29,7 @@ def segsum(x):
     cs = torch.cumsum(x, dim=-1)
     seg = cs[..., :, None] - cs[..., None, :]
     mask = torch.tril(torch.ones((T, T), dtype=torch.bool, device=x.device))
-    return torch.where(mask, seg, torch.tensor(NEG_INF, device=x.device))
+    return seg.masked_fill(~mask, NEG_INF)
 
 
 def ssd_chunked(X, A, B, C, chunk: int):
@@ -150,13 +151,18 @@ def _project(params, cfg, u, conv_x_cache, conv_bc_cache):
     return z, x, B, C, dt, conv_x_cache, conv_bc_cache
 
 
-def mamba2_forward(params, cfg, u, *, plain: bool = False):
+def mamba2_forward(params, cfg, u, *, plain: bool = False,
+                   graph: str = "serve"):
     """u [b, l, d] -> (y [b, l, d], (conv_x_c, conv_bc_c, ssm_state)),
     from empty caches and a zero state (prefill). The scan runs through
     the ``ssd_scan`` kernel on the card, with B and C per group in their
     own type; ``plain`` (tests and the chip check only) runs
     ``ssd_chunked`` on B and C repeated over the heads in f32, on any
-    device, to hold the kernel against it — never a fallback."""
+    device, to hold the kernel against it — never a fallback.
+    ``graph`` "train" (the training graph, which autograd
+    differentiates) scans as the reference's forward does: the same
+    ``ssd_chunked`` on B and C repeated in f32; the kernel has no
+    backward."""
     s = cfg.ssm
     b, l, d = u.shape
     d_in = d * s.expand
@@ -177,7 +183,7 @@ def mamba2_forward(params, cfg, u, *, plain: bool = False):
         Cg = F.pad(Cg, (0, 0, 0, 0, 0, pad))
     X = x.float() * dt[..., None]
     dA = dt * A
-    if plain:
+    if plain or graph == "train":
         rep = nheads // s.num_groups
         Y, ssm_state = ssd_chunked(
             X, dA, Bg.repeat_interleave(rep, dim=2).float(),

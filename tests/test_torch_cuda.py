@@ -675,3 +675,52 @@ def test_cuda_mla_prefill_matches_plain(dtype):
     scale = want.float().abs().max().item()
     torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
                                atol=TOL[dtype] * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["qwen2-1.5b", "paligemma-3b",
+                                  "deepseek-v2-236b", "mamba2-1.3b"])
+def test_cuda_train_step_matches_cpu(name):
+    """On the card: the training graph's loss and every gradient leaf at
+    ``reduced(...)`` (f32) against the CPU's on the same weights and
+    batch (loss within 1e-5 relative, each leaf within 1e-4 of its
+    largest |value|), then one AdamW update from the CPU's gradients on
+    both devices (parameters within 1e-6 of each leaf's largest
+    |value|); no kernel launches on the way."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the H100)")
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models.model import init_params
+    from repro_torch.training import optimizer as O
+    from repro_torch.training.data import synthetic_batches
+    from repro_torch.training.train_loop import batch_to, loss_and_grads
+    from repro_torch.device import resolve_device
+    resolve_device("cuda")                      # no TF32
+    cfg = reduced(get_config(name))
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    gpu = O.tree_map(lambda t: t.to("cuda"), cpu)
+    batch = next(synthetic_batches(cfg.vocab_size, 2, 64, seed=0))
+    rng = np.random.default_rng(0)
+    if cfg.frontend == "vision":
+        batch["patches"] = rng.standard_normal(
+            (2, cfg.frontend_len, cfg.d_model)).astype(np.float32)
+        batch["prefix_len"] = np.full((2,), cfg.frontend_len, np.int32)
+    counts = (flash_prefill.launches, ssd_scan.launches)
+    loss, _, grads = loss_and_grads(cfg, gpu, batch_to(batch, "cuda"))
+    assert (flash_prefill.launches, ssd_scan.launches) == counts
+    want, _, cpu_grads = loss_and_grads(cfg, cpu, batch_to(batch, "cpu"))
+    assert abs(loss.item() - want.item()) <= 1e-5 * abs(want.item())
+
+    def leaves_close(got, ref, rel):
+        for g, w in zip(O.tree_leaves(got), O.tree_leaves(ref)):
+            err = (g.cpu() - w).abs().max().item()
+            assert err <= rel * w.abs().max().item(), err
+
+    leaves_close(grads, cpu_grads, 1e-4)
+    opt = O.OptConfig()
+    gs, cs = O.opt_init(opt, gpu), O.opt_init(opt, cpu)
+    O.opt_update(opt, O.tree_map(lambda g: g.to("cuda"), cpu_grads), gs, gpu)
+    O.opt_update(opt, cpu_grads, cs, cpu)
+    leaves_close(gpu, cpu, 1e-6)

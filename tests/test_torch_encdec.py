@@ -93,7 +93,7 @@ def test_encoder_projection_matches_jax(pair):
         np.float32)
     pos = np.broadcast_to(np.arange(5, dtype=np.int32), (2, 5))
     lj = jax.tree.map(lambda a: a[0], jp["encoder"]["layers"])["attn"]
-    lt = TM._index(tp["encoder"]["layers"], 0)["attn"]
+    lt = TM.layer_params(tp["encoder"])[0]["attn"]
     for rope in (False, True):
         want = JL.attn_project_qkv(lj, jcfg, jnp.asarray(x),
                                    jnp.asarray(pos), rope=rope)

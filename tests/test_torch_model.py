@@ -175,7 +175,9 @@ def test_params_from_numpy_keeps_mixer_f32_leaves(param_dtype):
 
 # kw1 and kw3 were the hybrid and encdec families, which the model now
 # serves; kw2, mla attention (here on a dense stack), is served too and
-# holds the reference's prefill and decode: the cases left keep their ids
+# holds the reference's prefill and decode: the cases left keep their
+# ids. The prefix-LM prefill, which raised here, is served too: each case
+# now holds it against the reference's (mla through its training graph)
 @pytest.mark.parametrize("kw", [dict(attention_impl="surrogate"),
                                 dict(mla=MLAConfig(32, 32, 16, 8, 16))],
                          ids=["kw0", "kw2"])
@@ -190,10 +192,21 @@ def test_unported_model_options_raise(kw):
         assert cache["ckv"].shape == (2, 1, 16, 32)
         assert cache["k_rope"].shape == (2, 1, 16, 8)
         _check(_run_both(_pair("qwen2-1.5b", **kw), 9, 32, (9, 5), steps=4))
-    dense = reduced(get_config("qwen2-1.5b"), layers=2, d_model=64,
-                    vocab=331)
-    tp = TM.init_params(dense, torch.Generator().manual_seed(0), "cpu")
-    cache = TM.init_cache(dense, 1, 16, "cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        TM.prefill(dense, tp, torch.zeros((1, 4), dtype=torch.int64),
-                   cache, prefix_len=torch.tensor([2]))
+    jcfg, jp, tcfg, tp = _pair("qwen2-1.5b",
+                               **({} if cfg.mla is None else kw))
+    tokens = np.random.default_rng(2).integers(0, 331, size=(2, 9))
+    prefix, sl = np.array([4, 2], np.int32), np.array([9, 7], np.int32)
+    jl, jc = JM.prefill(jcfg, jp, jnp.asarray(tokens),
+                        JM.init_cache(jcfg, 2, 16),
+                        prefix_len=jnp.asarray(prefix),
+                        seq_lens=jnp.asarray(sl))
+    tl, tc = TM.prefill(tcfg, tp, torch.from_numpy(tokens),
+                        TM.init_cache(tcfg, 2, 16, "cpu"),
+                        prefix_len=torch.from_numpy(prefix),
+                        seq_lens=torch.from_numpy(sl))
+    _close(tl, jl, LOGIT_TOL)
+    for k, v in tc.items():
+        if v.is_floating_point():
+            _close(v, jc[k], CACHE_TOL)
+        else:
+            assert np.array_equal(v.numpy(), np.asarray(jc[k]))
