@@ -40,7 +40,8 @@ read just after:
   kernels (and ``sharded_flash_prefill``) against the single-device
   kernels, (g2) the sharded engine: phase (b)'s trace at M 2 in bf16
   and M 4 in f32, token for token the single-device engine's on the
-  same layers (M 4 in bf16 logged), a short per-token trace at M 4 (the
+  same layers (bf16 on slots runs in (g1) and (h5b); its M 4 trace was
+  cut for the script's time), a short per-token trace at M 4 (the
   decode kernel with stats, the dense graft) and phase (f3)'s replay at
   M 4 in f32, record for record the single-device
   run's; the ranks' launch counts are summed into the kernels' line;
@@ -57,7 +58,7 @@ read just after:
   empty; (h3) the live fleet gateway (``run_fleet_workload``) serving 12
   interactive sessions on the wall clock at scale 1 with a drained
   replica's sessions live-migrating; (h4) the launcher's ``--replicas 3
-  --workload handoff`` (at full depth);
+  --workload handoff`` (at full depth, the clock at scale 4);
 - (h5) the replica fleet over a mesh on the same 14 layers: two
   replicas, each sharding its page store over one mesh of ranks that
   share the card (gloo through host memory), the leader running the
@@ -70,8 +71,8 @@ read just after:
   that evict: every plan done or cancelled as the decision log says,
   every replica (the drained one too) empty at the end, the streams
   logged against one device's; (h5c) the launcher's ``--engine live
-  --replicas 2 --mesh 1x2 --workload handoff`` (at full depth), every
-  turn served; the ranks' launch counts are summed into the kernels'
+  --replicas 2 --mesh 1x2 --workload handoff`` (at full depth, two
+  sessions, the clock at scale 4), every turn served; the ranks' launch counts are summed into the kernels'
   line;
 - (i) the moe and vlm families: (i0) the three attention kernels at
   head dim 256 (paligemma-3b's round, MQA with 8 query heads) against
@@ -84,7 +85,8 @@ read just after:
   to its batch), its fused streams unchanged when the padded query
   slots hold zeros or random values (the moe layers route only real
   tokens), and the f32 twin at capacity factor E / k, held to B = 1;
-  (i3) the launcher's ``--engine real`` at paligemma-3b and at
+  the moe dispatch and ordered combine timed alone (host and device)
+  against the ``index_add_`` combine they replaced; (i3) the launcher's ``--engine real`` at paligemma-3b and at
   qwen3-4b (36 layers, ``qk_norm``);
 - (j) the hybrid and encdec families on the ring-cache model: (j0)
   ``flash_prefill`` at recurrentgemma-9b's local layers (16 query heads
@@ -129,6 +131,17 @@ read just after:
   attention group; h2o-danube past its window with remat, paligemma
   with 256 patches under the prefix-LM mask, mamba2, whisper over 1500
   frames whole);
+- (m) kernel autotune at qwen2-1.5b's live geometry (bf16, 8 slots,
+  pages of 16, 40 a session): the cost model's launch cost and memory
+  rate measured, the paged pair's ``span`` swept over the decode kind
+  and the fused kind at Q 1-16 (one line per candidate: device µs,
+  modeled µs, error against the plain version), the cache saved and
+  reloaded; at the pick, the decode kernel equal to the fused one at
+  Q = 1 bit for bit, and both kernels in f32 held to the plain version
+  at 2e-5; the engine's fused round with the cache held to the round
+  without (the bf16 tolerance, every argmax equal, the cache hit); the
+  launcher's ``--engine live --autotune`` at full width; the paged rows
+  re-timed at the default span with the device-only timer;
 
 and checks what comes out. Every phase is checked; any failure exits
 non-zero. The last line of standard output is
@@ -1695,7 +1708,7 @@ def replay_phase(cfg, params, dev) -> None:
 G_CTX = [0, 170, 411, 96, 250, 333, 128, 0]   # row 0 prefills from 0
 G_PLANS = {  # the parts each 1xM mesh runs: (g1) kernels, (g2) paths
     2: ["kernels", "flash", ("fused", "bfloat16")],
-    4: ["kernels", ("fused", "bfloat16"), ("fused", "float32"),
+    4: ["kernels", ("fused", "float32"),
         ("tokenwise", "float32"), ("replay", "float32")],
     3: ["kernels"],
 }
@@ -2058,9 +2071,8 @@ def sharded_phase(cfg, params, dev) -> list:
                     f"{b['secs'] / b['rounds'] * 1e3:.2f} ms/round); "
                     f"sessions with the single-device {dtype} tokens "
                     f"{same}/{len(ref_toks)}")
-                if not (kind == "slots" and dtype == "bfloat16"):
-                    check(res["tokens"] == ref_toks, f"{tag}: tokens "
-                          "differ from the single-device engine's")
+                check(res["tokens"] == ref_toks, f"{tag}: tokens "
+                      "differ from the single-device engine's")
             elif what == "tokenwise":
                 same = res["histories"] == tw32["histories"]
                 log(f"[sharded] {tag}: {res['steps']} steps in "
@@ -2385,12 +2397,14 @@ def live_fleet_phase(cfg, params, dev, f1: dict) -> dict:
 def launcher_fleet_phase() -> None:
     """(h4) the launcher's fleet on the card: ``--engine live --replicas
     3 --workload handoff`` at qwen2-1.5b on three sessions, two of which
-    hand off to another replica; it must print one row per replica."""
+    hand off to another replica, the clock at scale 4 (cut from 1: the
+    trace's wall time); it must print one row per replica and hand off
+    and migrate at least once."""
     import os
     t0 = time.perf_counter()
     cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--engine",
            "live", "--replicas", str(FLEET), "--workload", "handoff",
-           "--sessions", "3"]
+           "--sessions", "3", "--clock-scale", "4"]
     out = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
                          cwd=ROOT, env=dict(os.environ,
                                             PYTHONPATH=str(ROOT / "src")))
@@ -2404,7 +2418,9 @@ def launcher_fleet_phase() -> None:
                if ln.split()[:1] in (["p50_ttfp"], ["p90_ttfp"],
                                      ["handoffs"], ["migrations"],
                                      ["rounds"])}
-    check(int(summary.get("handoffs", 0)) > 0, f"(h4) no handoff: {summary}")
+    check(int(summary.get("handoffs", 0)) > 0
+          and int(summary.get("migrations", 0)) > 0,
+          f"(h4) no handoff or no migration: {summary}")
     log(f"[fleet] (h4) {' '.join(cmd[1:])}: {time.perf_counter() - t0:.1f}"
         f" s; " + "; ".join(f"{k} {v}" for k, v in summary.items())
         + "; " + "; ".join(" ".join(r.split()) for r in rows))
@@ -2579,21 +2595,24 @@ def mesh_fleet_checks(tag: str, what: str, got: dict, one: dict) -> None:
 def launcher_mesh_fleet_phase() -> None:
     """(h5c) the launcher's fleet over a mesh on the card: ``--engine
     live --replicas 2 --mesh 1x2 --workload handoff`` at qwen2-1.5b (full
-    depth) on three sessions; every turn of the trace must be served,
-    and there must be one row a replica."""
+    depth) on two sessions, the clock at scale 4 (cut from three
+    sessions at scale 1 for the script's time; two still hand off and
+    migrate once); every turn of the trace must be served, there must be
+    one row a replica, and a handoff and a migration."""
     import os
     from repro_torch.serving.workload import WorkloadConfig, generate
     t0 = time.perf_counter()
     cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--engine",
            "live", "--replicas", str(H5_REPLICAS), "--mesh", "1x2",
-           "--workload", "handoff", "--sessions", "3", "--json"]
+           "--workload", "handoff", "--sessions", "2", "--clock-scale", "4",
+           "--json"]
     out = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
                          cwd=ROOT, env=dict(os.environ,
                                             PYTHONPATH=str(ROOT / "src")))
     check(out.returncode == 0, f"(h5c) {' '.join(cmd[1:])} exited "
           f"{out.returncode}: {out.stderr[-2000:]}")
     s = json.loads(out.stdout[out.stdout.index("{"):])
-    wl = WorkloadConfig(kind="handoff", num_sessions=3, seed=SEED,
+    wl = WorkloadConfig(kind="handoff", num_sessions=2, seed=SEED,
                         arrival="poisson", rate_rps=2.0)
     want = sum(min(len(x.turns), 2) for x in generate(wl))
     rows = [s.get(f"replica{i}", "") for i in range(H5_REPLICAS)]
@@ -2601,6 +2620,9 @@ def launcher_mesh_fleet_phase() -> None:
           f"(h5c) {s['turns']} turns served of the trace's {want}")
     check(all("routed=" in r and "peak_occupancy=" in r for r in rows),
           f"(h5c) replica rows: {rows}")
+    check(s["handoffs"] > 0 and s["migrations"] > 0,
+          f"(h5c) handoffs {s['handoffs']}, migrations {s['migrations']}: "
+          "the fleet over the mesh moved no session")
     mesh_line = [ln for ln in out.stderr.splitlines()
                  if ln.startswith("[mesh]")]
     log(f"[fleet] (h5c) {' '.join(cmd[1:])}: "
@@ -2973,7 +2995,54 @@ def phi_phase(dev, add) -> None:
           f"(i2) f32 streams differ from B = 1 at cf 8: {same}")
     del p32
     free_device()
+    moe_combine_timing(dev)
     log(f"[family] phase (i2): {time.perf_counter() - t0:.1f} s")
+
+
+def moe_combine_timing(dev) -> None:
+    """(i2) The moe layer's dispatch and combine alone, bf16, at
+    phi3.5-moe's fused round (128 tokens, 16 experts top-2, d 4096) and
+    deepseek-v2's decode round (4 tokens, 160 experts top-6, d 5120):
+    the host's time a call (200 calls enqueued, then synchronized; the
+    rounds are host-bound) and the device's, of ``build_dispatch`` +
+    ``combine`` (ordered) against ``build_dispatch`` + ``index_add_``
+    (the unordered combine it replaced), on the same tables."""
+    from repro_torch.kernels.autotune import DeviceTimer
+    from repro_torch.models.moe import _capacity, build_dispatch, combine
+    timer = DeviceTimer(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    for name, T, E, k, d in (("phi3.5-moe fused round", 128, 16, 2, 4096),
+                             ("deepseek-v2 decode round", 4, 160, 6, 5120)):
+        C = _capacity(T, k, E, 1.25)
+        sel = torch.rand((T, E), generator=g, device=dev).argsort(-1)[:, :k]
+        w = torch.rand((T, k), generator=g, device=dev)
+        ye = torch.randn((E, C, d), generator=g, device=dev).bfloat16()
+
+        def ordered():
+            _, w_tab, slots = build_dispatch(sel, w, E, C, slots=True)
+            return combine(slots, ye * w_tab[..., None].bfloat16())
+
+        def unordered():
+            tok, w_tab = build_dispatch(sel, w, E, C)
+            y = ye.new_zeros((T + 1, d))
+            y.index_add_(0, tok.reshape(-1),
+                         (ye * w_tab[..., None].bfloat16()).reshape(-1, d))
+            return y[:T]
+        us = {}
+        for tag, run in (("ordered", ordered), ("index_add_", unordered)):
+            run()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(200):
+                run()
+            torch.cuda.synchronize()
+            us[tag] = ((time.perf_counter() - t1) / 200 * 1e6,
+                       timer(run, 20))
+        log(f"[family] (i2) moe dispatch + combine, {name} (T {T}, E {E}, "
+            f"top-{k}, C {C}, d {d}, bf16): ordered host {us['ordered'][0]:.1f}"
+            f" us a call, device {us['ordered'][1]:.1f} us; index_add_ host "
+            f"{us['index_add_'][0]:.1f} us, device {us['index_add_'][1]:.1f}"
+            f" us")
 
 
 def padded_slot_fills(cfg, params, dev, fused_tokens) -> None:
@@ -3837,6 +3906,224 @@ def training_phase(dev) -> dict:
     return out
 
 
+# ======================================================================
+# (m) kernel autotune at qwen2-1.5b's live geometry
+# ======================================================================
+M_GEOMETRY = dict(B=8, Hq=12, Hkv=2, D=128, page=16, pps=40)
+M_WIDTHS = (1, 2, 4, 8, 16)   # the engine's _q_bucket widths up to 16
+
+
+def m_case(dev, g, Q):
+    """The geometry's tables (pps 40, pages of 16) with an engine
+    round's rows: rows 0-1 prefill Q tokens, the others decode one, the
+    last pads; contexts up to 600 of the table's 640 keys."""
+    G = M_GEOMETRY
+    ctx = [600, 170, 411, 96, 250, 333, 128, 0]
+    q, kp, vp, bt, qs, ql = kernel_case(dev, torch.bfloat16, G["B"], Q, ctx,
+                                        g)
+    pps = G["pps"]
+    P = G["B"] * pps + 1
+    kp = torch.randn(P, G["page"], G["Hkv"], G["D"], generator=g,
+                     device=dev).to(torch.bfloat16)
+    vp = torch.randn_like(kp)
+    bt = torch.randperm(P - 1, generator=g, device=dev)[:G["B"] * pps] \
+        .reshape(G["B"], pps).int()
+    return q, kp, vp, bt, qs, ql
+
+
+def autotune_round(cfg, params, dev, cache):
+    """One mixed fused round of the engine's step at the geometry, with
+    the cache enabled and without, on the same pages: (logits without,
+    logits with, the cache's stats after the round)."""
+    from repro_torch.kernels import autotune
+    from repro_torch.serving.paged_engine import paged_fused_step
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    G = M_GEOMETRY
+    B, page, pps, C = G["B"], G["page"], G["pps"], 256
+    P = B * pps
+    kp = torch.zeros((cfg.num_layers, P + 1, page, cfg.num_kv_heads,
+                      cfg.resolved_head_dim), dtype=torch.bfloat16,
+                     device=dev)
+    vp = torch.zeros_like(kp)
+    bt = torch.randperm(P, generator=g, device=dev).reshape(B, pps).int()
+    ctx = torch.tensor([600, 256, 97, 150, 31, 222, 180, 0], device=dev)
+
+    def tables(start, n, Q):
+        t = torch.arange(Q, device=dev)
+        pos = start[:, None] + t[None, :]
+        live = t[None, :] < n[:, None]
+        pg = torch.where(live, bt.long().gather(
+            1, (pos // page).clamp(max=pps - 1)), P)
+        sl = torch.where(live, pos % page, t[None, :] % page)
+        return pos.int(), pg, sl
+    # fill the contexts in chunks of 256, cache off
+    done = torch.zeros_like(ctx)
+    while bool((done < ctx).any()):
+        n = (ctx - done).clamp(max=C)
+        toks = torch.randint(0, cfg.vocab_size, (B, C), generator=g,
+                             device=dev)
+        pos, pg, sl = tables(done, n, C)
+        paged_fused_step(cfg, params, toks, pos, kp, vp, bt, done.int(),
+                         n.int(), pg, sl)
+        done = done + n
+    n = torch.tensor([16, 16, 1, 1, 1, 1, 1, 0], device=dev)
+    pos, pg, sl = tables(ctx, n, 16)
+    toks = torch.randint(0, cfg.vocab_size, (B, 16), generator=g, device=dev)
+    args = (toks, pos, kp, vp, bt, ctx.int(), n.int(), pg, sl)
+    k0, v0 = kp.clone(), vp.clone()
+    without = paged_fused_step(cfg, params, *args)
+    kp.copy_(k0), vp.copy_(v0)
+    autotune.enable(str(cache))
+    try:
+        with_cache = paged_fused_step(cfg, params, *args)
+        torch.cuda.synchronize()
+        stats = autotune.stats()
+    finally:
+        autotune.disable()
+    live = n > 0
+    return without[live], with_cache[live], stats
+
+
+def launcher_autotune_phase(cache) -> None:
+    """(m) the launcher's ``--engine live --autotune`` at qwen2-1.5b's
+    full width on two sessions (clock scale 4): every turn served, the
+    cache consulted by every round."""
+    import os
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--engine",
+           "live", "--sessions", "2", "--clock-scale", "4", "--autotune",
+           str(cache), "--json"]
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                         cwd=ROOT, env=dict(os.environ,
+                                            PYTHONPATH=str(ROOT / "src")))
+    check(out.returncode == 0, f"(m) {' '.join(cmd[1:])} exited "
+          f"{out.returncode}: {out.stderr[-2000:]}")
+    s = json.loads(out.stdout)
+    stats = dict(kv.split("=") for kv in s["autotune"].split())
+    log(f"[autotune] (m) {' '.join(cmd[3:])}: "
+        f"{time.perf_counter() - t0:.1f} s; turns {s['turns']}, rounds "
+        f"{s['rounds']}, p90_ttfp {s['p90_ttfp']}; cache {stats}")
+    check(s["turns"] > 0 and int(stats["hits"]) > 0
+          and int(stats["entries"]) > 0, f"(m) launcher: {s}")
+
+
+def autotune_phase(dev) -> list:
+    """(m) The paged pair's span swept at qwen2-1.5b's live
+    geometry in bf16, the cache saved and reloaded, the picks checked,
+    the engine's fused round and the launcher run with the cache, and
+    the paged rows re-timed at the default knobs with the device-only
+    timer. Returns the counts of the main paths it drives."""
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import autotune, ref
+    from repro_torch.kernels.paged_attention import (
+        paged_attention, paged_prefill_attention)
+    from repro_torch.models.model import init_params
+    t0 = time.perf_counter()
+    consts = autotune.measure_constants(dev)
+    log(f"[autotune] measured on this card: launch {consts['launch_us']} "
+        f"us, HBM {consts['hbm_gb_s']} GB/s; the model's constants: launch "
+        f"{autotune.C_LAUNCH_US} us, HBM {autotune.HBM_GB_S} GB/s, peaks "
+        f"{ {str(k)[6:]: v for k, v in autotune.PEAK_TFLOPS.items()} } "
+        f"TFLOP/s, {torch.cuda.get_device_properties(dev).multi_processor_count}"
+        f" SMs")
+    tmp = smoke_dir()
+    cache = tmp / "autotune.json"
+    autotune.enable(str(cache))
+    rows = []
+    t_sweep = time.perf_counter()
+    autotune.sweep("paged_prefill_attention", **M_GEOMETRY, Q=16,
+                   q_widths=M_WIDTHS, dtype=torch.bfloat16, device=dev,
+                   reps=10, log=rows)
+    t_sweep = time.perf_counter() - t_sweep
+    for r in rows:
+        log(f"[autotune] {r['kind']} Q={r['Q']} span={r['span']}: device "
+            f"{r['us']} us, model {r['model_us']} us, max_abs_err "
+            f"{r['max_abs_err']}")
+        check(r["us"] is not None and r["max_abs_err"] <= TOL[torch.bfloat16],
+              f"(m) candidate {r} failed against the plain version")
+    entries = dict(autotune._STATE["cache"])
+    for k, e in sorted(entries.items()):
+        log(f"[autotune] pick {k}: {e}")
+    autotune.save()
+    autotune.disable()
+    check(autotune.enable(str(cache)) == len(M_WIDTHS) + 1
+          and autotune._STATE["cache"] == entries, "(m) reload")
+    spans = {e["span"] for e in entries.values()}
+    check(len(spans) == 1, f"(m) one span a geometry: {spans}")
+    span = spans.pop()
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    q, kp, vp, bt, qs, ql = m_case(dev, g, 16)
+    one = torch.ones_like(ql)
+    q1, qd = q[:, :1].contiguous(), q[:, 0].contiguous()
+    # under the cache (knobs unset): decode == fused at Q = 1, bitwise
+    hits = autotune.stats()["hits"]
+    d = paged_attention(qd, kp, vp, bt, qs + 1)
+    f = paged_prefill_attention(q1, kp, vp, bt, qs, one)
+    wide = paged_prefill_attention(q, kp, vp, bt, qs, ql)
+    torch.cuda.synchronize()
+    check(autotune.stats()["hits"] == hits + 3, "(m) the cache was not hit")
+    autotune.disable()
+    check(torch.equal(f[:, 0], d), f"(m) decode != fused Q=1 at span {span}")
+    err = max_valid_err(wide, ref.paged_prefill_attention_ref(
+        q, kp, vp, bt, qs, ql), ql)
+    check(err <= TOL[torch.bfloat16], f"(m) span {span}: err {err}")
+    # the picked span given explicitly: the cached call's bits
+    check(torch.equal(paged_prefill_attention(q, kp, vp, bt, qs, ql,
+                                              span=span), wide),
+          "(m) the explicit span differs from the cached one")
+    # both kernels at the picked span in f32 against the plain version
+    q32, kp32, vp32 = q.float(), kp.float(), vp.float()
+    d32 = paged_attention(qd.float(), kp32, vp32, bt, qs + 1, span=span)
+    f32 = paged_prefill_attention(q32, kp32, vp32, bt, qs, ql, span=span)
+    live = ql > 0
+    err32 = max(
+        (d32[live] - ref.paged_attention_ref(
+            qd.float(), kp32, vp32, bt, qs + 1)[live]).abs().max().item(),
+        max_valid_err(f32, ref.paged_prefill_attention_ref(
+            q32, kp32, vp32, bt, qs, ql), ql))
+    check(err32 <= TOL[torch.float32], f"(m) span {span} f32: err {err32}")
+    log(f"[autotune] sweep {t_sweep:.1f} s, {len(rows)} candidates; picked "
+        f"span {span}: decode == fused Q=1 bitwise, max_abs_err {err} vs "
+        f"plain (tol {TOL[torch.bfloat16]}); f32 both kernels max_abs_err "
+        f"{err32} (tol {TOL[torch.float32]})")
+    # the engine's fused round with the cache and without
+    cfg = get_config("qwen2-1.5b")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+    (without, with_cache, stats), counts = main_path(
+        "autotune round (m)", autotune_round, cfg, params, dev, cache)
+    err = (with_cache.float() - without.float()).abs().max().item()
+    scale = without.float().abs().max().item()
+    agree = (with_cache.argmax(-1) == without.argmax(-1)).float().mean() \
+        .item()
+    log(f"[autotune] fused round with the cache vs without: logits "
+        f"max_abs_err {err:.3e} (scale {scale:.2f}, tol 3e-2 of scale), "
+        f"argmax agreement {agree:.3f}; cache {stats}")
+    check(torch.isfinite(with_cache).all().item() and err <= 3e-2 * scale
+          and agree == 1.0 and stats["hits"] > 0,
+          f"(m) round with the cache: {err}, {agree}, {stats}")
+    del params
+    free_device()
+    launcher_autotune_phase(cache)
+    shutil.rmtree(tmp, ignore_errors=True)
+    # the paged rows at the default knobs, device-only timer
+    timer = autotune.DeviceTimer(dev)
+    ctx = [300, 170, 411, 96, 250, 333, 128, 0]
+    q, kp, vp, bt, qs, ql = kernel_case(dev, torch.bfloat16, 8, 16, ctx, g)
+    qd = q[:, 0].contiguous()
+    for name, run in (
+            ("paged_prefill_attention",
+             lambda: paged_prefill_attention(q, kp, vp, bt, qs, ql)),
+            ("paged_attention",
+             lambda: paged_attention(qd, kp, vp, bt, qs + 1))):
+        log(f"[autotune] {name} at the default span (the kernel rows' "
+            f"shapes): device {timer(run, 20)} us (median of 20, L2 "
+            f"flushed)")
+    log(f"[autotune] phase (m): {time.perf_counter() - t0:.1f} s")
+    return [counts]
+
+
 def cast_params(tree, dtype, parent=None, key=None):
     """Every leaf to ``dtype`` (no copy where it already is), except the
     leaves that stay f32 at any type (the mixer's, the router, the
@@ -4054,6 +4341,9 @@ def main() -> int:
     t_l = time.perf_counter()
     training_phase(dev)
     log(f"[train] phase (l): {time.perf_counter() - t_l:.1f} s")
+    # (m) kernel autotune: the engine's fused round with the cache
+    for counts in autotune_phase(dev):
+        add(counts, {"paged_prefill_attention": 0})
     for name, n in total.items():
         check(n > 0, f"{name} never launched on a main path")
         rows[name]["launches"] = n

@@ -63,9 +63,12 @@
 //   float32, the path the 2e-5 checks hold (TF32 would not): the same
 //   fragments computed with f32 FMAs on the CUDA cores, P gathered from
 //   the lane quad by shuffles.
-// - Sequence split: a row's walk is cut into fixed spans of kSpanKeys
-//   keys counted from position 0, on grid.z beside the row groups, so a
-//   small batch still fills the SMs. Each block writes its span's
+// - Sequence split: a row's walk is cut into fixed spans of `span` keys
+//   counted from position 0, on grid.z beside the row groups, so a
+//   small batch still fills the SMs. The span is a launch argument, a
+//   multiple of kTileKeys up to kMaxSpanKeys (the CUDA counterpart of
+//   the Pallas kernels' `kv_block`): a short span fills more SMs, a long
+//   one leaves the merge less to read. Each block writes its span's
 //   unnormalised (o, m, l) to f32 scratch (m in log2 units: scores carry
 //   scale * log2 e, one ex2 per weight); a span past a row's limit writes
 //   m = NEG_INF, l = 0. `paged_merge` then combines the spans of each row
@@ -73,11 +76,14 @@
 //   rows as zeros.
 // - Row independence: a row's result depends only on its own q, pages and
 //   q_start + t, never on Q, B, the table width or its neighbours.
-//   Fixed span boundaries give it; keys a block walks past a row's limit
-//   score NEG_INF and add exact zeros (p = 0, and the rescale is skipped
-//   when the running max does not move). So the decode kernel equals the
-//   fused kernel's Q = 1 case, and the decode rows of a mixed launch,
-//   bit for bit.
+//   Fixed span boundaries give it, whatever the span; keys a block walks
+//   past a row's limit score NEG_INF and add exact zeros (p = 0, and the
+//   rescale is skipped when the running max does not move). So the
+//   decode kernel equals the fused kernel's Q = 1 case, and the decode
+//   rows of a mixed launch, bit for bit, at any one span.
+// - No head blocks: the Pallas kernels' `head_block` bounds the VMEM of
+//   one grid step; here each block already takes one KV head (grid.y),
+//   so cutting the heads into launches would only add launches.
 // Not yet done (later work): TMA and wgmma (a 64-row tile is one wgmma M).
 
 #include <cuda_bf16.h>
@@ -93,7 +99,8 @@ constexpr int kWarps = 4;
 constexpr int kRows = 16 * kWarps;  // query rows per block
 constexpr int kTileKeys = 16;       // keys per tile
 constexpr int kStages = 4;          // tiles in the cp.async ring
-constexpr int kSpanKeys = 128;      // keys per span (ref.SPAN_KEYS)
+constexpr int kSpanKeys = 128;      // the default span (ref.SPAN_KEYS)
+constexpr int kMaxSpanKeys = 4096;  // the longest span a launch takes
 constexpr float kNegInf = -0.7f * 3.402823466e38f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -251,18 +258,25 @@ __host__ __device__ constexpr int row_stride() {
   return mma::Tile<D, 16 / sizeof(T)>::STRIDE;
 }
 
+// Table entries a span of `span` keys reaches from any first key: at
+// most ceil((span - 1) / page) + 1; one more keeps the bound simple.
+__host__ __device__ constexpr int span_entries(int span, int page) {
+  return span / page + 2;
+}
+
+// The Q and K/V tiles, then the span's block-table entries.
 template <typename T, int D>
-constexpr size_t smem_bytes() {
+__host__ __device__ constexpr size_t tile_bytes() {
   return ((size_t)kRows + 2 * (size_t)kStages * kTileKeys) *
          row_stride<T, D>() * sizeof(T);
 }
 
 // DECODE: `starts` holds seq_lens (q_start = seq_len - 1, q_lens = 1);
 // otherwise it holds q_start and `q_lens` the valid tokens per row.
-// Block (b, h, z) with z = group * nspan + span: rows [64 group,
-// 64 group + 64) of (b, h), keys [span * kSpanKeys, (span + 1) *
-// kSpanKeys). Writes o_part [B, Hkv, nspan, G*Q, D] and ml_part
-// [B, Hkv, nspan, G*Q, 2] for the live rows.
+// Block (b, h, z) with z = group * nspan + s: rows [64 group, 64 group
+// + 64) of (b, h), keys [s * span, (s + 1) * span).
+// Writes o_part [B, Hkv, nspan, G*Q, D] and ml_part [B, Hkv, nspan,
+// G*Q, 2] for the live rows.
 template <typename T, int D, bool DECODE>
 __global__ void __launch_bounds__(kWarps * 32)
 paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
@@ -272,18 +286,18 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                        const int* __restrict__ q_lens,
                        float* __restrict__ o_part,
                        float* __restrict__ ml_part, int Q, int Hq, int Hkv,
-                       int page, int pps, int nspan, float scale,
-                       int stride, int offset) {
+                       int page, int pps, int nspan, int span,
+                       float scale, int stride, int offset) {
   constexpr int EPC = 16 / sizeof(T);  // elements of a 16-byte chunk
   constexpr int CH = D / EPC;          // chunks of a row
   constexpr int DT = D / 8;            // n8 tiles of the output
   constexpr int RS = row_stride<T, D>();  // elements of a shared row
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  // table entries a span reaches: at most kSpanKeys / page + 1
-  __shared__ int tbl[kSpanKeys + 1];
   T* qs = reinterpret_cast<T*>(smem_raw);  // [kRows][RS]
   T* ks = qs + kRows * RS;                 // [kStages][16][RS]
   T* vs = ks + kStages * kTileKeys * RS;   // [kStages][16][RS]
+  // the span's table entries, span_entries(span, page) of them
+  int* tbl = reinterpret_cast<int*>(smem_raw + tile_bytes<T, D>());
 
   const int b = blockIdx.x;
   const int h = blockIdx.y;
@@ -298,12 +312,12 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int seq_end = pps * page;
-  const int key0 = sp * kSpanKeys;
+  const int key0 = sp * span;
   auto visible = [&](int row) {  // local keys query row `row` attends
     return visible_keys(start + row / G, page, stride, offset, seq_end);
   };
   // the block's last live row sees the most keys
-  const int key_end = min(key0 + kSpanKeys, visible(r_hi - 1));
+  const int key_end = min(key0 + span, visible(r_hi - 1));
   const size_t part = ((size_t)(b * Hkv + h) * nspan + sp) * rows;
 
   if (key_end <= key0) {  // the span lies past every row's limit
@@ -543,20 +557,24 @@ paged_merge(const float* __restrict__ o_part,
 struct Args {
   const void *q, *k, *v, *bt, *starts, *q_lens;
   void *out, *o_part, *ml_part, *m_out, *l_out;
-  int B, Q, Hq, Hkv, page, pps, nspan, stride, offset;
+  int B, Q, Hq, Hkv, page, pps, nspan, span, stride, offset;
   float scale;
   cudaStream_t stream;
 };
 
 template <typename T, int D, bool DECODE>
 cudaError_t launch(const Args& a) {
-  // the scratch must hold a span for every key of the table
-  if ((long long)a.nspan * kSpanKeys < (long long)a.pps * a.page ||
+  // a legal span; the scratch must hold a span for every key of the
+  // table
+  if (a.span < kTileKeys || a.span > kMaxSpanKeys || a.span % kTileKeys ||
+      (long long)a.nspan * a.span < (long long)a.pps * a.page ||
+      a.page < 1 ||
       a.stride < a.page || (a.m_out == nullptr) != (a.l_out == nullptr))
     return cudaErrorInvalidValue;
   const int rows = (a.Hq / a.Hkv) * a.Q;
   const int groups = (rows + kRows - 1) / kRows;
-  const size_t smem = smem_bytes<T, D>();
+  const size_t smem =
+      tile_bytes<T, D>() + sizeof(int) * span_entries(a.span, a.page);
   auto kernel = paged_attention_kernel<T, D, DECODE>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -567,7 +585,8 @@ cudaError_t launch(const Args& a) {
       static_cast<const T*>(a.v), static_cast<const int*>(a.bt),
       static_cast<const int*>(a.starts), static_cast<const int*>(a.q_lens),
       static_cast<float*>(a.o_part), static_cast<float*>(a.ml_part), a.Q,
-      a.Hq, a.Hkv, a.page, a.pps, a.nspan, a.scale, a.stride, a.offset);
+      a.Hq, a.Hkv, a.page, a.pps, a.nspan, a.span, a.scale, a.stride,
+      a.offset);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const int warps = a.B * a.Hkv * rows;
@@ -583,9 +602,10 @@ cudaError_t launch(const Args& a) {
 // dtype: 0 = float32, 1 = bfloat16. The head dims a caller launches:
 // 128 (qwen2-1.5b, qwen3-4b, phi3.5-moe), 256 (paligemma-3b), 192
 // (nemotron-4-340b), 80 (h2o-danube-1.8b) and 32 for the small card
-// test; add others with the configs that need them. The same body takes
-// 192 KB of shared memory in f32 at D 256 and 144 KB at D 192 (96 and 72
-// KB in bf16), under the 227 KB a block may opt into.
+// test; add others with the configs that need them. The tiles take 192
+// KB of shared memory in f32 at D 256 and 144 KB at D 192 (96 and 72 KB
+// in bf16), and the table entries at most 4 (kMaxSpanKeys + 2) bytes
+// more, under the 227 KB a block may opt into.
 template <bool DECODE>
 int dispatch(int dtype, int D, const Args& a) {
   using bf16 = __nv_bfloat16;
@@ -604,24 +624,26 @@ int dispatch(int dtype, int D, const Args& a) {
 
 }  // namespace
 
-// The span length the kernels are built with; the wrapper sizes the
-// scratch from it and checks it against ref.SPAN_KEYS.
+// The default span and the longest; the wrapper checks the default
+// against ref.SPAN_KEYS and a span it is given against both rules.
 extern "C" int paged_span_keys() { return kSpanKeys; }
+extern "C" int paged_max_span_keys() { return kMaxSpanKeys; }
 
 // Returns cudaGetLastError() after the launches (0 on success). o_part
 // [B, Hkv, nspan, Hq/Hkv * Q, D] and ml_part [..., 2] are f32 scratch for
-// the span partials, nspan >= ceil(pps * page / paged_span_keys()).
-// pos_stride >= page and pos_offset place the local slots (page, 0 for
-// the identity); m_out/l_out are the [B, Q, Hq] f32 stats, or both null.
+// the span partials, nspan >= ceil(pps * page / span), span a multiple of
+// 16 in [16, paged_max_span_keys()]. pos_stride >= page and pos_offset
+// place the local slots (page, 0 for the identity); m_out/l_out are the
+// [B, Q, Hq] f32 stats, or both null.
 extern "C" int paged_prefill_attention_launch(
     int dtype, const void* q, const void* k_pages, const void* v_pages,
     const void* block_tables, const void* q_start, const void* q_lens,
     void* out, void* o_part, void* ml_part, void* m_out, void* l_out, int B,
-    int Q, int Hq, int Hkv, int D, int page, int pps, int nspan,
+    int Q, int Hq, int Hkv, int D, int page, int pps, int nspan, int span,
     int pos_stride, int pos_offset, float scale, void* stream) {
   const Args a{q, k_pages, v_pages, block_tables, q_start, q_lens, out,
                o_part, ml_part, m_out, l_out, B, Q, Hq, Hkv, page, pps,
-               nspan, pos_stride, pos_offset, scale,
+               nspan, span, pos_stride, pos_offset, scale,
                static_cast<cudaStream_t>(stream)};
   return dispatch<false>(dtype, D, a);
 }
@@ -630,11 +652,11 @@ extern "C" int paged_attention_launch(
     int dtype, const void* q, const void* k_pages, const void* v_pages,
     const void* block_tables, const void* seq_lens, void* out, void* o_part,
     void* ml_part, void* m_out, void* l_out, int B, int Hq, int Hkv, int D,
-    int page, int pps, int nspan, int pos_stride, int pos_offset,
+    int page, int pps, int nspan, int span, int pos_stride, int pos_offset,
     float scale, void* stream) {
   const Args a{q, k_pages, v_pages, block_tables, seq_lens, nullptr, out,
                o_part, ml_part, m_out, l_out, B, 1, Hq, Hkv, page, pps,
-               nspan, pos_stride, pos_offset, scale,
+               nspan, span, pos_stride, pos_offset, scale,
                static_cast<cudaStream_t>(stream)};
   return dispatch<true>(dtype, D, a);
 }

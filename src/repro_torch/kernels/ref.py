@@ -20,6 +20,7 @@ import torch
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 SPAN_KEYS = 128   # keys per span of the paged kernels' sequence split
+MAX_SPAN_KEYS = 4096   # the longest span the paged kernels take
 
 
 def _gather(pages, block_tables):

@@ -51,9 +51,14 @@ store over the same mesh, and rank 0 runs the fleet's control plane
       --device cpu --config tiny --replicas 3 --mesh 1x2 \
       --workload handoff
 
-The flags and their rejections are the reference launcher's; kernel
-autotune (``--autotune``) is not ported yet and is rejected naming its
-ROADMAP item.
+The flags and their rejections are the reference launcher's.
+``--autotune CACHE.json`` (live) has the paged kernels take their
+tiling from a cache that ``kernels/autotune.py::sweep`` built (a
+missing file starts empty; serving never sweeps or saves), and the
+summary reports the cache's entries, hits and misses:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --engine live \
+      --device cpu --config tiny --autotune cache.json
 """
 from __future__ import annotations
 
@@ -138,10 +143,6 @@ def build_demo(config: str, device, seed: int = 0):
     return cfg, params, dict(DEMOS[config], seed=seed, device=dev)
 
 
-def _not_ported(ap, flag: str, item: str) -> None:
-    ap.error(f"{flag} is not ported yet (ROADMAP.md queue 1 item {item})")
-
-
 def _serve(mesh_spec, device: str, fn) -> None:
     """``fn(None)`` here, or ``fn(mesh)`` on every rank of a ``DxM``
     mesh spawned from here (the kernels built first, so the ranks only
@@ -200,6 +201,10 @@ def _live(config: str, device, seed: int, kw: dict, as_json: bool,
     off = sum(e.transfer.stats.reload_pages_off_path for e in engines)
     on = sum(e.transfer.stats.reload_pages_on_path for e in engines)
     s["transfer_overlap_frac"] = off / (off + on) if off + on else 0.0
+    if kw.get("autotune"):
+        from repro_torch.kernels import autotune
+        s["autotune"] = " ".join(f"{k}={v}"
+                                 for k, v in autotune.stats().items())
     if replicas > 1:
         done = gw.migrator.completed()
         for i in range(replicas):
@@ -302,8 +307,11 @@ def main(argv=None) -> None:
                          "drafts; DESIGN.md §16). Lossless: accepted "
                          "streams equal K=0's. Needs --fused-step")
     ap.add_argument("--autotune", default=None, metavar="CACHE.json",
-                    help="live engine: kernel autotune cache (not "
-                         "ported yet)")
+                    help="live engine: the paged kernels take their "
+                         "tiling from this autotune cache JSON, built "
+                         "with repro_torch.kernels.autotune.sweep (a "
+                         "missing file starts empty; serving never "
+                         "sweeps or saves)")
     ap.add_argument("--replicas", type=int, default=None,
                     help="live engine: data-parallel engine replicas "
                          "behind one gateway, sharing one set of weights, "
@@ -397,8 +405,6 @@ def main(argv=None) -> None:
             ap.error("--spec-decode verifies drafts in one fused launch "
                      "and cannot run on the per-token control plane; "
                      "drop --no-fused-step (DESIGN.md §16)")
-        if args.autotune is not None:
-            _not_ported(ap, "--autotune (kernel autotune)", "4")
         live = LIVE[config]
         page = live["page_size"]
         slots = args.slots if args.slots is not None else 8
@@ -417,6 +423,7 @@ def main(argv=None) -> None:
             prefix_cache=bool(args.prefix_cache),
             kv_quant=args.kv_quant or "fp32",
             spec_decode=spec_decode,
+            autotune=args.autotune,
             prompt_families=(args.prompt_families
                              if args.prompt_families is not None else 0),
             family_prefix_len=(args.family_prefix_len

@@ -94,13 +94,15 @@ def _capacity_of(tokens, top_k: int, num_experts: int, cf: float):
 
 
 def build_dispatch(sel, weights, num_experts: int, capacity: int,
-                   valid=None, limit=None):
+                   valid=None, limit=None, slots: bool = False):
     """argsort-based dispatch tables: (tok_idx [E, C] int64, an index
     into the padded token array where row T is the zero pad; w [E, C]
     f32 combine weights, 0 on empty slots). ``valid`` [T] bool leaves
     the other tokens out (a sentinel expert past the last: they sort
     after every real slot and are never kept); ``limit`` (a device
-    count <= C) keeps only ranks below it."""
+    count <= C) keeps only ranks below it. With ``slots`` a third table
+    follows, ``combine``'s: each token's flat slots ``e * C + c`` [T, k]
+    int64 in ascending order, ``E * C`` for a choice not kept."""
     T, k = sel.shape
     dev = sel.device
     flat_e = sel.reshape(-1)
@@ -125,8 +127,13 @@ def build_dispatch(sel, weights, num_experts: int, capacity: int,
                         device=dev)
     w_tab[dest] = torch.where(keep, weights.reshape(-1)[order].float(),
                               0.0)
-    return (tok_idx[:-1].reshape(num_experts, capacity),
-            w_tab[:-1].reshape(num_experts, capacity))
+    tables = (tok_idx[:-1].reshape(num_experts, capacity),
+              w_tab[:-1].reshape(num_experts, capacity))
+    if not slots:
+        return tables
+    tok_slots = torch.empty_like(dest)
+    tok_slots[order] = dest
+    return (*tables, torch.sort(tok_slots.reshape(T, k), dim=1).values)
 
 
 def expert_ffn(params, xe):
@@ -134,6 +141,28 @@ def expert_ffn(params, xe):
     h = F.silu(torch.bmm(xe, params["w_gate"]))
     h = h * torch.bmm(xe, params["w_up"])
     return torch.bmm(h, params["w_down"])
+
+
+def combine(tok_slots, contrib):
+    """Each token's weighted expert outputs summed -> [T, d] in
+    ``contrib``'s type: tok_slots [T, k] (``build_dispatch``'s, E * C
+    for a choice not kept), contrib [E, C, d].
+
+    The reference scatter-adds the slots in flat (e, c) order
+    (``.at[].add``), so a token's sum starts from a zero row and adds
+    its kept contributions in ascending expert order, each partial sum
+    rounded to the type. The same here, on the card too: one gather
+    takes each token's slots in that order, a zero for a choice not
+    kept (adding it is exact), and a fixed loop over k adds them. The
+    sums are the same on every run and device (``index_add_``'s atomics
+    on the card add in an order that varies from run to run)."""
+    n = contrib.shape[0] * contrib.shape[1]
+    g = contrib.reshape(n, -1)[tok_slots.clamp_max(n - 1)]      # [T, k, d]
+    first, *rest = torch.where((tok_slots < n)[..., None], g, 0).unbind(1)
+    y = first + 0                          # onto the reference's zero row
+    for g_j in rest:
+        y = y + g_j
+    return y
 
 
 # ----------------------------------------------------------------- local path
@@ -157,18 +186,12 @@ def moe_local(params, x, cfg, valid=None):
         valid = valid.reshape(T)
         limit = _capacity_of(valid.sum(), m.top_k, m.num_experts,
                              m.capacity_factor)
-    tok_idx, w_tab = build_dispatch(sel, weights, m.num_experts, C, valid,
-                                    limit)
+    tok_idx, w_tab, tok_slots = build_dispatch(
+        sel, weights, m.num_experts, C, valid, limit, slots=True)
     x_pad = torch.cat([x2, x2.new_zeros((1, d))])
     ye = expert_ffn(params, x_pad[tok_idx])             # [E, C, d]
-    # Each real token receives one add per expert that kept it, onto a
-    # zero row: with top_k <= 2 that is x = (0 + a) + b, the same in
-    # any order, so ``index_add_``'s unordered atomics on the card give
-    # the reference's sums exactly. From top_k 3 on the order matters.
-    y = x2.new_zeros((T + 1, d))
-    y.index_add_(0, tok_idx.reshape(-1),
-                 (ye * w_tab[..., None].to(ye.dtype)).reshape(-1, d))
-    y = y[:T].reshape(B, S, d)
+    y = combine(tok_slots, ye * w_tab[..., None].to(ye.dtype)) \
+        .reshape(B, S, d)
     if m.num_shared_experts:
         y = y + mlp_apply(params["shared"], x, "swiglu")
     return y, aux

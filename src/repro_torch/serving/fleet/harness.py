@@ -70,9 +70,8 @@ def build_fleet_gateway(*, replicas: int = 3, policy: str = "liveserve",
     from repro_torch.serving.paged_engine import (PagedRealtimeEngine,
                                                   follow_engines)
     if autotune:
-        raise NotImplementedError(
-            "kernel autotune is not ported yet (ROADMAP.md queue 1 "
-            "item 4)")
+        from repro_torch.kernels import autotune as at
+        at.enable(autotune)
     cfg, params = model if model is not None \
         else tiny_model(seed, device=device)
     clock = ScaledWallClock(scale)

@@ -90,7 +90,9 @@ def build_gateway(*, policy: str = "liveserve", scale: float = 8.0,
                   kv_quant: str = "fp32",
                   spec_decode: int = 0,
                   proposer=None,
-                  mesh=None) -> Optional[RealtimeGateway]:
+                  mesh=None,
+                  autotune: Optional[str] = None
+                  ) -> Optional[RealtimeGateway]:
     """``model``: ``(cfg, params)`` with params on ``device``; the
     default is ``tiny_model(seed)``. ``mesh``: a ``ServingMesh`` shards
     the engine's page store (DESIGN.md §9); every rank calls this with
@@ -102,8 +104,15 @@ def build_gateway(*, policy: str = "liveserve", scale: float = 8.0,
     per-token differential-control plane (one step per token —
     DESIGN.md §11). ``spec_decode=K`` drafts up to K tokens per decode
     slot per round and verifies them in the same fused step
-    (DESIGN.md §16)."""
+    (DESIGN.md §16); ``autotune`` names a kernel-config cache JSON the
+    paged kernels consult for their tiling (``kernels/autotune.py``; a
+    missing file starts empty, and serving never sweeps or saves). On a
+    mesh every rank enables it before it builds or follows its engine;
+    a shard's shapes simply miss."""
     from repro_torch.serving.paged_engine import PagedRealtimeEngine
+    if autotune:
+        from repro_torch.kernels import autotune as at
+        at.enable(autotune)
     cfg, params = model if model is not None \
         else tiny_model(seed, device=device)
     clock = ScaledWallClock(scale)

@@ -724,3 +724,85 @@ def test_cuda_train_step_matches_cpu(name):
     O.opt_update(opt, O.tree_map(lambda g: g.to("cuda"), cpu_grads), gs, gpu)
     O.opt_update(opt, cpu_grads, cs, cpu)
     leaves_close(gpu, cpu, 1e-6)
+
+
+# ======================================================================
+# the tiling knob (span) and the moe combine
+# ======================================================================
+KNOB_SPANS = [16, 32, 48, 64, 128, 256, 512, 1024]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_tiling_knobs_match_plain(dtype):
+    """Every span (a multiple of 16 up to past the whole row, 48 no
+    power of two) against the plain version; the launch with stats
+    equal to the one without, bit for bit; at each span the decode
+    kernel equal to the fused one at Q = 1, and the decode rows of the
+    mixed launch equal to the decode kernel's (row independence), bit
+    for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the H100)")
+    for B, Q, Hq, Hkv, D, page, ctx in LONG_CASES:
+        q, kp, vp, bt, qs, ql = _long_case("cuda", TDT[dtype], B, Q, Hq,
+                                           Hkv, D, page, ctx)
+        want = tref.paged_prefill_attention_ref(q, kp, vp, bt, qs, ql)
+        one = torch.ones_like(ql)
+        q1, qd = q[:, :1].contiguous(), q[:, 0].contiguous()
+        rows = (ql == 1).nonzero().flatten()
+        for span in KNOB_SPANS:
+            whole = paged_prefill_attention(q, kp, vp, bt, qs, ql,
+                                            span=span, return_stats=True)
+            _valid_close(whole[0].float().cpu(), want.float().cpu(),
+                         ql.cpu(), TOL[dtype])
+            assert torch.equal(paged_prefill_attention(
+                q, kp, vp, bt, qs, ql, span=span), whole[0]), span
+            d = paged_attention(qd, kp, vp, bt, qs + 1, span=span)
+            f = paged_prefill_attention(q1, kp, vp, bt, qs, one, span=span)
+            assert torch.equal(f[:, 0], d), span
+            assert torch.equal(whole[0][rows, 0], d[rows]), span
+
+
+@pytest.mark.cuda
+def test_cuda_default_knobs_are_the_parent_grid():
+    """An unset span, no cache: the same launch as span ref.SPAN_KEYS,
+    bit for bit; an illegal span raises before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the H100)")
+    B, Q, Hq, Hkv, D, page, ctx = LONG_CASES[0]
+    q, kp, vp, bt, qs, ql = _long_case("cuda", torch.bfloat16, B, Q, Hq,
+                                       Hkv, D, page, ctx)
+    got = paged_prefill_attention(q, kp, vp, bt, qs, ql)
+    assert torch.equal(got, paged_prefill_attention(
+        q, kp, vp, bt, qs, ql, span=tref.SPAN_KEYS))
+    for span in (24, 8, 0, 8192):
+        with pytest.raises(ValueError):
+            paged_prefill_attention(q, kp, vp, bt, qs, ql, span=span)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_moe_combine_deterministic(dtype):
+    """The moe dispatch and combine at top_k 6 (deepseek-v2's) on the
+    card, some slots dropped: the tables equal the CPU's, five combines
+    bit-identical and equal to the CPU's on the same inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the H100)")
+    from repro_torch.models.moe import _capacity, build_dispatch, combine
+    rng = np.random.default_rng(0)
+    E, T, d, k = 160, 256, 512, 6
+    C = _capacity(T, k, E, 1.25)
+    sel = np.stack([rng.permutation(E)[:k] for _ in range(T)])
+    sel[T - 40:] = sel[T - 41]
+    sel = torch.from_numpy(sel)
+    wts = torch.from_numpy(rng.random((T, k)).astype(np.float32))
+    cpu = build_dispatch(sel, wts, E, C, slots=True)
+    gpu = build_dispatch(sel.cuda(), wts.cuda(), E, C, slots=True)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(gpu, cpu))
+    assert (cpu[2] == E * C).any()
+    contrib = torch.from_numpy(rng.standard_normal((E, C, d)).astype(
+        np.float32)).to(TDT[dtype])
+    want = combine(cpu[2], contrib)
+    runs = [combine(gpu[2], contrib.cuda()) for _ in range(5)]
+    assert all(torch.equal(r, runs[0]) for r in runs)
+    assert torch.equal(runs[0].cpu(), want)

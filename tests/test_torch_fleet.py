@@ -24,8 +24,8 @@
 - The launcher's ``--replicas 3 --workload handoff``, the same over a
   ``--mesh 1x2`` of two CPU ranks, and its one-replica ``--workload
   handoff``, on the CPU.
-- ``build_fleet_gateway``: kernel autotune raises naming its ROADMAP
-  item; a mesh is taken.
+- ``build_fleet_gateway``: kernel autotune (ROADMAP item 4) and a mesh
+  (item 8), both ported since, are taken.
 """
 import dataclasses
 import json
@@ -750,14 +750,23 @@ def test_live_fleet_on_cpu_matches_twin_decisions(tiny, kind, sessions,
     (dict(mesh="1x1"), "item 8"),
 ])
 def test_fleet_harness_rejects_what_is_not_ported(tiny, tmp_path, kw, item):
-    """Kernel autotune (ROADMAP item 4) is not ported and raises naming
-    its item. The fleet over a mesh (item 8) is: on a one-rank mesh the
-    harness builds every replica on it, replica i as engine i, and
-    nothing raises."""
+    """What the harness once refused, both ported since, is taken.
+    Kernel autotune (ROADMAP item 4): the harness enables the cache (a
+    missing file starts empty) and builds the fleet. The fleet over a
+    mesh (item 8): on a one-rank mesh the harness builds every replica
+    on it, replica i as engine i, and nothing raises."""
     _, _, tcfg, tp = tiny
     if "autotune" in kw:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-            build_fleet_gateway(model=(tcfg, tp), device="cpu", **kw)
+        from repro_torch.kernels import autotune
+        path = str(tmp_path / kw["autotune"])
+        try:
+            gw = build_fleet_gateway(model=(tcfg, tp), device="cpu",
+                                     autotune=path)
+            assert autotune.enabled() and autotune._STATE["path"] == path
+            assert autotune.stats()["entries"] == 0
+        finally:
+            autotune.disable()
+        assert len(gw.replicas) == REPLICAS
         return
     mesh = make_serving_mesh(kw["mesh"], rank=0, device="cpu",
                              init_method=f"file://{tmp_path}/rendezvous")

@@ -151,6 +151,45 @@ def test_expert_ffn_matches_jax(dtype):
                                atol=TOL[dtype])
 
 
+@pytest.mark.parametrize("k", [2, 6])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_combine_matches_index_add_and_jax(dtype, k):
+    """The combine adds each token's kept slots in ascending expert
+    order onto a zero row, as the reference's ``.at[].add`` over the
+    flat (e, c) slots does: equal bit for bit at top_k 2 and 6 (the
+    tables from ``build_dispatch`` at cf 1.25, some slots dropped, its
+    token slots the port's), in f32 and bf16. ``index_add_`` on the CPU,
+    the earlier combine, gives the same bits in f32 and at top_k 2; in
+    bf16 from top_k 3 on it rounds a token's sum once, not once an add,
+    so there it differs from both (it is not compared)."""
+    rng = np.random.default_rng(11 + k)
+    E, T, d = 16, 40, 24
+    sel = np.stack([rng.permutation(E)[:k] for _ in range(T)])
+    wts = rng.random((T, k)).astype(np.float32)
+    C = jmoe._capacity(T, k, E, 1.25)
+    tok, _ = jmoe.build_dispatch(jnp.asarray(sel, jnp.int32), _j(wts), E, C)
+    tok = np.asarray(tok)
+    assert (tok == T).any() and np.bincount(tok.ravel())[:T].max() == k
+    tt, _, slots = tmoe.build_dispatch(torch.from_numpy(sel), _t(wts), E,
+                                       C, slots=True)
+    assert np.array_equal(tt.numpy(), tok)
+    # each token's kept slots, ascending, then E * C for the dropped
+    for t in range(T):
+        kept = np.flatnonzero(tok.reshape(-1) == t)
+        assert slots[t].tolist() == kept.tolist() + [E * C] * (k - len(kept))
+    contrib = rng.standard_normal((E, C, d)).astype(np.float32) * 8
+    want = jnp.zeros((T + 1, d), getattr(jnp, dtype)).at[
+        tok.reshape(-1)].add(_j(contrib, dtype).reshape(-1, d))[:T]
+    got = tmoe.combine(slots, _t(contrib, dtype))
+    assert got.dtype == getattr(torch, dtype) and got.shape == (T, d)
+    assert np.array_equal(_np(got), _np(want))
+    if dtype == "float32" or k <= 2:
+        y = torch.zeros((T + 1, d), dtype=getattr(torch, dtype))
+        y.index_add_(0, torch.from_numpy(tok).long().reshape(-1),
+                     _t(contrib, dtype).reshape(-1, d))
+        assert torch.equal(got, y[:T])
+
+
 def _cfgs(E, k, cf, shared):
     def one(get, red):
         cfg = red(get("phi3.5-moe-42b-a6.6b"), layers=2, d_model=D,

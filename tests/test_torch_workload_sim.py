@@ -6,10 +6,10 @@ These modules are framework-free copies (only their imports differ),
 so everything they produce is held to the reference exactly: the
 seeded sessions and turns field by field, the simulator's
 ``Metrics.summary()`` dict, and the launcher's JSON. The launcher keeps
-every argparse rejection of the reference (``--mesh``'s included), and
-rejects what the port has not ported yet (``--autotune``) naming its
-ROADMAP item; a fleet of ``--replicas`` above 1 over a ``--mesh``,
-whatever its ``--workload``, is taken.
+every argparse rejection of the reference (``--mesh``'s included); what
+it once refused as not ported is taken: ``--autotune`` (handed to the
+live harness), and a fleet of ``--replicas`` above 1 over a ``--mesh``,
+whatever its ``--workload``.
 """
 import dataclasses
 import json
@@ -192,13 +192,13 @@ def test_launcher_rejects_as_reference(argv, words, monkeypatch, capsys):
     assert words in got
 
 
-# what the port has not ported yet: rejected before any model is built.
-# The fleet (``--replicas`` above 1, the ``handoff`` workload) is ported,
-# and since the fleet over a mesh too (item None): the launcher takes it
-# and launches on the mesh with the replica count
+# what the port once refused as not ported, each ported since (item
+# None): the fleet (``--replicas`` above 1, the ``handoff`` workload) over
+# a mesh, which the launcher launches on the mesh with the replica count,
+# and ``--autotune``, which it hands to the live harness
 NOT_PORTED = [
     ("--engine live --autotune cache.json",
-     ["--engine", "live", "--autotune", "cache.json"], "--autotune", "4"),
+     ["--engine", "live", "--autotune", "cache.json"], "--autotune", None),
     ("--engine live --replicas 2",
      ["--engine", "live", "--replicas", "2", "--mesh", "1x2"], "--mesh",
      None),
@@ -215,10 +215,15 @@ def test_launcher_rejects_what_is_not_ported(argv, flag, item,
     if item is None:
         launched = []
         monkeypatch.setattr(t_serve, "_serve", lambda mesh, device, fn:
-                            launched.append((mesh, fn.args[-1])))
+                            launched.append((mesh, fn.args)))
         _port_main(argv, monkeypatch)
-        replicas = int(argv[argv.index("--replicas") + 1])
-        assert launched == [(argv[argv.index(flag) + 1], replicas)]
+        [(mesh, args)] = launched
+        value = argv[argv.index(flag) + 1]
+        if flag == "--autotune":         # the live harness's keyword
+            assert mesh is None and args[3]["autotune"] == value
+        else:
+            replicas = int(argv[argv.index("--replicas") + 1])
+            assert (mesh, args[-1]) == (value, replicas)
         return
     got = _rejection(_port_main, argv, monkeypatch, capsys)
     assert flag in got
