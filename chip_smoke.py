@@ -29,8 +29,9 @@ read just after:
   (f2) the same trace under fcfs, each held to what the trace
   determines; (f3) the virtual-time replay twin (``run_replay``) on a
   pool tight enough to evict, with the next-use eviction oracle, on
-  both planes in f32 (identical streams and turn records) and in bf16;
-- (g) the sharded page plane (``mesh=``), on qwen2-1.5b's first 14 of
+  both planes in f32 (identical streams and turn records) and in bf16,
+  on the first 4 layers (``CUT_LAYERS``);
+- (g) the sharded page plane (``mesh=``), on qwen2-1.5b's first 4 of
   28 layers at full width: (g0) the paged kernels' sharding options
   (``pos_stride``, ``pos_offset``, ``return_stats``) at the engine's
   shapes in one process, against the plain version, the stripe merge
@@ -45,7 +46,7 @@ read just after:
   decode kernel with stats, the dense graft) and phase (f3)'s replay at
   M 4 in f32, record for record the single-device
   run's; the ranks' launch counts are summed into the kernels' line;
-- (h) the replica fleet on qwen2-1.5b's first 14 layers: three paged
+- (h) the replica fleet on qwen2-1.5b's first 4 layers: three paged
   engines in this process sharing the one set of weights, behind one
   gateway: (h1) the
   fleet twin (``run_fleet_replay``) on a barge-free agent-handoff trace
@@ -59,7 +60,7 @@ read just after:
   interactive sessions on the wall clock at scale 1 with a drained
   replica's sessions live-migrating; (h4) the launcher's ``--replicas 3
   --workload handoff`` (at full depth, the clock at scale 4);
-- (h5) the replica fleet over a mesh on the same 14 layers: two
+- (h5) the replica fleet over a mesh on the same 4 layers: two
   replicas, each sharding its page store over one mesh of ranks that
   share the card (gloo through host memory), the leader running the
   fleet's control plane and the other ranks following both replicas in
@@ -79,7 +80,7 @@ read just after:
   their plain versions; (i1) paligemma-3b whole (18 layers, bf16) on
   both planes of phase (b)'s trace, and its f32 twin on both planes and
   through the per-token plane's dense graft, held to the B = 1 greedy
-  streams; (i2) phi3.5-moe at full width on 8 of its 32 layers (16
+  streams; (i2) phi3.5-moe at full width on 4 of its 32 layers (16
   experts, top-2): bf16 at the published capacity factor on both
   planes (its streams against B = 1 logged: capacity drops tie a token
   to its batch), its fused streams unchanged when the padded query
@@ -112,20 +113,21 @@ read just after:
   layers on both planes of trace (b), and its f32 twin on 1 layer held
   to B = 1; (k3) h2o-danube-1.8b whole on the single-turn engine,
   prompts of 1171-5000 tokens on a 4096-slot ring, bf16 and f32 (f32
-  held to B = 1), against the plain versions; (k4) qwen3-4b whole in
-  f32 on both planes of trace (b), held to B = 1;
+  held to B = 1), against the plain versions; (k4) qwen3-4b at full
+  width on 18 of its 36 layers in f32 on both planes of trace (b), held
+  to B = 1;
 - (l) single-device training, no kernel on its path (each part's
   counts must stay 0): (l0) qwen2-1.5b whole (28 layers, bf16, AdamW)
-  for 30 steps of 8 x 256 synthetic tokens, the loss falling, ms a
+  for 15 steps of 8 x 256 synthetic tokens, the loss falling, ms a
   step, tokens/s and peak memory, one step profiled; (l1) its first 2
   layers at full width in f32, the card's loss and every gradient leaf
   against the CPU's, one AdamW update from the CPU's gradients on both,
   and (outside the counts) ``forward``'s logits against the
   ``flash_prefill`` prefill's; (l2) microbatches 2 with remat against
-  one batch; (l3) 10 steps straight against 5, an ``async_save``, a
-  simulated failure, ``run_resilient``'s restore (bit-equal, bf16
-  leaves included) and 5 more; (l4) the launcher with a checkpoint,
-  then ``--resume``; (l5) every other family at full width for 5 steps
+  one batch; (l3) on its first 4 layers, 10 steps straight against 5,
+  an ``async_save``, a simulated failure, ``run_resilient``'s restore
+  (bit-equal, bf16 leaves included) and 5 more; (l4) the launcher
+  (whole) with a checkpoint, then ``--resume``; (l5) every other family at full width for 5 steps
   on one batch, the loss falling (deepseek-v2 on its dense and one moe
   layer with Adafactor, recurrentgemma-9b on one rglru, rglru,
   attention group; h2o-danube past its window with remat, paligemma
@@ -142,6 +144,21 @@ read just after:
   without (the bf16 tolerance, every argmax equal, the cache hit); the
   launcher's ``--engine live --autotune`` at full width; the paged rows
   re-timed at the default span with the device-only timer;
+- (n) training over a ('data', 'model') mesh of rank processes sharing
+  the card over gloo, no kernel on its path (every rank's counts must
+  stay 0), each single-device reference run first and freed: (n1)
+  qwen2-1.5b whole (bf16, AdamW) on 1x2 through the launcher's own
+  rank body (``launch/train.py::prepare``, then ``train_loop``), 3 steps
+  of 8 x 256 and a checkpoint at the last (saved from the mesh, full
+  leaves from rank 0), the losses held to the single-device launcher's,
+  each rank's peak memory under one device's, the leaves every rank
+  holds whole bit-equal; then ``--resume``'s restore onto the mesh,
+  every rank's blocks bit-equal to the ones it saved; (n2) its first 4 layers on
+  2x2 with FSDP in bf16, and an f32 twin on 1 layer whose loss and every
+  gradient leaf (made whole) are held to one device's at 1e-4; (n3)
+  phi3.5-moe at full width on 2 of 32 layers on 1x2 (8 of 16 experts a
+  rank, Adafactor), held to one device's step with the slice-wise moe
+  (``slicewise_moe``, the checker);
 
 and checks what comes out. Every phase is checked; any failure exits
 non-zero. The last line of standard output is
@@ -1713,10 +1730,10 @@ G_PLANS = {  # the parts each 1xM mesh runs: (g1) kernels, (g2) paths
     3: ["kernels"],
 }
 G_LAYOUTS = {2: "heads", 4: "slots", 3: "replicated"}
-# (g) and (h) serve qwen2-1.5b at full width on its first 14 of 28
-# layers, which roughly halves their rounds' device work and (g)'s
-# per-layer gloo traffic
-CUT_LAYERS = 14
+# (f3), (g), (h) and (h5) serve qwen2-1.5b at full width on its first 4
+# of 28 layers: a seventh of their rounds' device work and of the
+# meshes' per-layer gloo traffic, for the script's time limit
+CUT_LAYERS = 4
 
 
 def first_layers(cfg, params, n: int):
@@ -2639,9 +2656,10 @@ def launcher_mesh_fleet_phase() -> None:
 # paligemma-3b's heads: 8 query heads on one KV head of 256, so a fused
 # round of 16 tokens has 128 rows (two row groups of the paged kernel)
 PALI_HEADS = dict(Hq=8, Hkv=1, D=256)
-# phi3.5-moe at full width with its depth cut: 8 of its 32 layers (all
-# 32 are ~84 GB of bf16 weights, more than the card holds)
-PHI_LAYERS = 8
+# phi3.5-moe at full width with its depth cut: 4 of its 32 layers (all
+# 32 are ~84 GB of bf16 weights, more than the card holds; 8 before the
+# script's time limit asked for more room)
+PHI_LAYERS = 4
 
 
 def paged_dim_rows(dev, tag, heads, g, timer) -> dict:
@@ -3505,18 +3523,23 @@ def danube_phase(dev, add) -> dict:
     return total
 
 
+K4_LAYERS = 18     # (k4): qwen3-4b's first 18 of 36 layers (its time)
+
+
 def qwen3_phase(dev, add) -> None:
-    """(k4) qwen3-4b whole (36 layers, ``qk_norm``, head dim 128 > d /
-    heads) in f32 on both planes of trace (b), held to B = 1."""
+    """(k4) qwen3-4b at full width on 18 of its 36 layers (``qk_norm``,
+    head dim 128 > d / heads) in f32 on both planes of trace (b), held
+    to B = 1."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_params
     free_device()
     t0 = time.perf_counter()
     cfg = get_config("qwen3-4b").replace(dtype="float32",
-                                         param_dtype="float32")
+                                         param_dtype="float32",
+                                         num_layers=K4_LAYERS)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
                          dev)
-    check(cfg.num_layers == 36 and cfg.qk_norm
+    check(cfg.num_layers == K4_LAYERS and cfg.qk_norm
           and cfg.resolved_head_dim == 128
           and params["embed"].dtype == torch.float32, "not qwen3-4b in f32")
     planes, counts = main_path("(k4) qwen3-4b f32", both_planes, cfg, params,
@@ -3580,9 +3603,9 @@ def timed_steps(step, params, state, batches, n):
 
 def train_whole_phase(dev) -> dict:
     """(l0) qwen2-1.5b whole (28 layers, bf16, AdamW) on
-    ``synthetic_batches(seed=0)``, 30 steps of B 8 x S 256: every loss
+    ``synthetic_batches(seed=0)``, 15 steps of B 8 x S 256: every loss
     and grad norm finite, the last five steps' mean loss below the first
-    five's; ms a step (median of steps 5-29), tokens/s, peak memory."""
+    five's; ms a step (median of steps 5-14), tokens/s, peak memory."""
     from repro_torch.configs import get_config
     from repro_torch.training.data import synthetic_batches
     from repro_torch.training.train_loop import TrainConfig, build_train_step
@@ -3597,19 +3620,19 @@ def train_whole_phase(dev) -> dict:
     torch.cuda.reset_peak_memory_stats()
     params, state, losses, norms, ms = timed_steps(
         step, params, state,
-        synthetic_batches(cfg.vocab_size, TRAIN_B, TRAIN_S, seed=0), 30)
+        synthetic_batches(cfg.vocab_size, TRAIN_B, TRAIN_S, seed=0), 15)
     peak = torch.cuda.max_memory_allocated()
     check(all(map(math.isfinite, losses + norms)),
           f"(l0) non-finite: losses {losses}, grad norms {norms}")
-    first, last = np.mean(losses[:5]), np.mean(losses[25:])
+    first, last = np.mean(losses[:5]), np.mean(losses[10:])
     check(last < first, f"(l0) loss did not fall: {first} -> {last}")
     med = float(np.median(ms[5:]))
     log(f"[train] (l0) {cfg.name}, {cfg.num_layers} layers, "
         f"{n_params / 1e9:.3f} B parameters in bf16, {opt.kind}, B "
         f"{TRAIN_B} x S {TRAIN_S}: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
-        f"(mean of steps 0-4 {first:.4f}, 25-29 {last:.4f}); grad norm "
+        f"(mean of steps 0-4 {first:.4f}, 10-14 {last:.4f}); grad norm "
         f"{norms[0]:.2f} -> {norms[-1]:.2f}; {med:.2f} ms a step (median "
-        f"of 5-29; step 0 {ms[0]:.1f} ms), "
+        f"of 5-14; step 0 {ms[0]:.1f} ms), "
         f"{TRAIN_B * TRAIN_S / med * 1e3:.0f} tokens/s, peak "
         f"{peak / 2 ** 30:.2f} GiB; {time.perf_counter() - t0:.1f} s")
     # where a step's time goes: the products (cuBLAS names its Hopper
@@ -3726,11 +3749,13 @@ def train_vs_prefill(twin) -> None:
 
 
 def train_resume_phase(dev) -> dict:
-    """(l3) (l0)'s setup for 10 steps straight, against 5 steps, an
-    ``async_save``, a simulated failure, ``run_resilient``'s restart from
-    the checkpoint into fresh tensors (bit-equal to the saved ones, bf16
-    leaves included) and 5 more steps: losses within 1e-3 relative (the
-    embedding's scatter-add on the card is not ordered)."""
+    """(l3) (l0)'s setup on the first CUT_LAYERS layers (full width; the
+    whole model's 21.5 GB checkpoint took ~40 s of I/O) for 10 steps
+    straight, against 5 steps, an ``async_save``, a simulated failure,
+    ``run_resilient``'s restart from the checkpoint into fresh tensors
+    (bit-equal to the saved ones, bf16 leaves included) and 5 more
+    steps: losses within 1e-3 relative (the embedding's scatter-add on
+    the card is not ordered)."""
     import shutil
     from repro_torch.configs import get_config
     from repro_torch.distributed.fault_tolerance import run_resilient
@@ -3740,7 +3765,7 @@ def train_resume_phase(dev) -> dict:
     from repro_torch.training.data import synthetic_batches
     from repro_torch.training.train_loop import TrainConfig, build_train_step
     t0 = time.perf_counter()
-    cfg = get_config("qwen2-1.5b")
+    cfg = get_config("qwen2-1.5b").replace(num_layers=CUT_LAYERS)
     params, opt, state = train_setup(cfg, dev)
     step = build_train_step(cfg, opt, TrainConfig(remat=False))
     data = synthetic_batches(cfg.vocab_size, TRAIN_B, TRAIN_S, seed=0)
@@ -3904,6 +3929,377 @@ def training_phase(dev) -> dict:
             del twin["params"], twin["cfg"]
             free_device()
     return out
+
+
+# ======================================================================
+# (n) training over a mesh on the card
+# ======================================================================
+N1_ARGS = dict(arch="qwen2-1.5b", reduced=False, steps=3, batch=TRAIN_B,
+               seq=TRAIN_S, microbatches=1, ckpt_dir=None, resume=False,
+               device="cuda")
+N2_LAYERS, N2_TWIN_LAYERS = 4, 1   # (n2): qwen2-1.5b's first layers
+N3_LAYERS, N3_B, N3_S = 2, 4, 256  # (n3): phi3.5-moe's first layers
+N_LOSS_TOL = 1e-2                  # bf16 mesh vs one device, relative
+N_TWIN_TOL = 1e-4                  # f32 mesh vs one device, relative
+
+
+def slicewise_moe(D: int, M: int):
+    """The checker of (n3): a ``moe_apply`` that runs the port's
+    ``moe_local`` on each (data shard, model slice) of its input, the
+    rows of each data shard flattened and padded with zeros to a
+    multiple of M tokens, the aux losses averaged. It is what
+    ``moe_ep`` computes over a D x M mesh (each slice routed with its
+    own capacity), on one device."""
+    from repro_torch.models import moe as moe_mod
+
+    def apply(params, x, cfg, mesh=None, valid=None, expert_tp=False):
+        B, S, d = x.shape
+        ys, auxs = [], []
+        for xd in x.chunk(D):
+            t = xd.shape[0] * S
+            tm = -(-t // M)
+            x2 = torch.cat([xd.reshape(t, d), xd.new_zeros((tm * M - t, d))])
+            parts = []
+            for m in range(M):
+                y, aux = moe_mod.moe_local(
+                    params, x2[m * tm:(m + 1) * tm][None], cfg)
+                parts.append(y[0])
+                auxs.append(aux)
+            ys.append(torch.cat(parts)[:t].reshape(xd.shape))
+        return torch.cat(ys), torch.stack(auxs).mean()
+    return apply
+
+
+def n3_setup(dev, mesh=None):
+    """(n3)'s model: phi3.5-moe at full width on its first N3_LAYERS
+    layers, bf16, the optimizer the whole config selects (Adafactor),
+    from seed SEED; on a mesh this rank's blocks. Returns (cfg, opt,
+    rules, params, state)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import ShardingRules, tree_local
+    from repro_torch.models.model import init_params, param_shapes
+    from repro_torch.training import optimizer as O
+    full = get_config("phi3.5-moe-42b-a6.6b")
+    cfg = full.replace(num_layers=N3_LAYERS)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+    opt, rules, specs = O.select_optimizer(full), None, None
+    if mesh is not None:
+        rules = ShardingRules(cfg, mesh)
+        specs = rules.params(param_shapes(cfg))
+        params = O.tree_map(lambda t: t.clone(),
+                            tree_local(params, specs, mesh))
+    return cfg, opt, rules, params, O.opt_init(opt, params, mesh, specs)
+
+
+def n3_batches(cfg):
+    from repro_torch.training.data import synthetic_batches
+    return synthetic_batches(cfg.vocab_size, N3_B, N3_S, seed=3)
+
+
+def twin_setup(dev, layers, dtype, mesh=None, fsdp=None):
+    """qwen2-1.5b at full width on its first ``layers`` layers in
+    ``dtype``, from seed SEED, AdamW; on a mesh this rank's blocks under
+    ``ShardingRules(fsdp=fsdp)``. Returns (cfg, opt, rules, specs,
+    params, state)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import ShardingRules, tree_local
+    from repro_torch.models.model import init_params, param_shapes
+    from repro_torch.training import optimizer as O
+    name = str(dtype).replace("torch.", "")
+    cfg = get_config("qwen2-1.5b").replace(num_layers=layers,
+                                           param_dtype=name, dtype=name)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+    opt, rules, specs = O.OptConfig(), None, None
+    if mesh is not None:
+        rules = ShardingRules(cfg, mesh, fsdp=fsdp)
+        specs = rules.params(param_shapes(cfg))
+        params = O.tree_map(lambda t: t.clone(),
+                            tree_local(params, specs, mesh))
+    return cfg, opt, rules, specs, params, O.opt_init(opt, params, mesh,
+                                                      specs)
+
+
+def twin_batch(cfg):
+    """(n2)'s f32 twin batch: 4 rows of 64, weights that differ by row."""
+    from repro_torch.training.data import synthetic_batches
+    b = next(synthetic_batches(cfg.vocab_size, 4, 64, seed=5))
+    b["weights"] = b["weights"] * np.arange(1, 5, dtype=np.float32)[:, None]
+    return b
+
+
+def held_digest(params, specs) -> dict:
+    """{leaf: sha1 of its bytes} for the leaves a rank holds whole (no
+    axis in their spec): every rank must hold the same bits."""
+    import hashlib
+    from repro_torch.distributed.sharding import spec_axes
+    out = {}
+
+    def walk(t, s, path):
+        if isinstance(t, dict):
+            for k in t:
+                walk(t[k], s[k], f"{path}/{k}")
+        elif not spec_axes(s):
+            b = t.detach().contiguous().view(torch.uint8).cpu().numpy()
+            out[path] = hashlib.sha1(b.tobytes()).hexdigest()
+    walk(params, specs, "")
+    return out
+
+
+def mesh_steps(mesh, cfg, opt, rules, params, state, batches, n):
+    """``n`` timed steps of the meshed train step: (params, state,
+    losses, grad norms, ms a step)."""
+    from repro_torch.training.train_loop import TrainConfig, build_train_step
+    step = build_train_step(cfg, opt, TrainConfig(remat=False), mesh=mesh,
+                            rules=rules)
+    return timed_steps(step, params, state, batches, n)
+
+
+def n_rank_1x2(mesh, ckpt: str) -> dict:
+    """(n1) and (n3) on one rank of the 1x2 mesh, each with the kernels'
+    counts zeroed just before it and read just after. (n1) is the
+    launcher's rank body (``prepare``, then ``train_loop``) with a
+    checkpoint under ``ckpt`` at its last step, then ``--resume``'s
+    ``prepare``, which restores it onto the mesh."""
+    from repro_torch.launch import train as LT
+    from repro_torch.models.model import param_shapes
+    from repro_torch.training.train_loop import TrainConfig, train_loop
+    out = {"rank": mesh.rank}
+    wrappers = kernel_counts()
+    for w in wrappers.values():
+        w.launches = 0
+    # (n1): whole qwen2-1.5b, timed as one call; each step's start marked
+    # where train_loop draws its batch
+    args = dict(N1_ARGS, ckpt_dir=ckpt)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run = LT.prepare(args, mesh)
+    marks = []
+
+    def batches(it=run["data"]):
+        while True:
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            yield next(it)
+    params, state, hist = train_loop(
+        run["cfg"], run.pop("params"), run.pop("state"), batches(),
+        steps=args["steps"], opt=run["opt"], tc=TrainConfig(remat=False),
+        mesh=mesh, rules=run["rules"], checkpoint_every=args["steps"],
+        ckpt_dir=ckpt, log_every=1)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    specs = run["rules"].params(param_shapes(run["cfg"]))
+    out["n1"] = dict(losses=[loss for _, loss in hist], call_s=t1 - t0,
+                     ms=[(b - a) * 1e3 for a, b in zip(marks, marks[1:])],
+                     last_and_save_s=t1 - marks[-1],
+                     peak=torch.cuda.max_memory_allocated(),
+                     held=held_digest(params, specs),
+                     local_gib=sum(t.numel() * t.element_size()
+                                   for t in _leaves(params)) / 2 ** 30)
+    del run
+    t0 = time.perf_counter()
+    back = LT.prepare(dict(args, resume=True), mesh)
+    torch.cuda.synchronize()
+    saved = _leaves(params) + _leaves(state)
+    got = _leaves(back["params"]) + _leaves(back["state"])
+    out["n1"].update(
+        restore_s=time.perf_counter() - t0, start=back["start"],
+        restored=len(got) == len(saved) and all(
+            a.dtype == b.dtype and torch.equal(a, b)
+            for a, b in zip(got, saved)))
+    del back, params, state, saved, got
+    free_device()
+    # (n3): phi3.5-moe, 8 of 16 experts a rank
+    torch.cuda.reset_peak_memory_stats()
+    cfg, opt, rules, params, state = n3_setup(mesh.device, mesh)
+    specs = rules.params(param_shapes(cfg))
+    params, state, losses, norms, ms = mesh_steps(
+        mesh, cfg, opt, rules, params, state, n3_batches(cfg), 2)
+    out["n3"] = dict(losses=losses, norms=norms, ms=ms,
+                     peak=torch.cuda.max_memory_allocated(),
+                     experts=(params["layers"]["moe"]["w_up"].shape[1],
+                              cfg.moe.num_experts),
+                     held=held_digest(params, specs))
+    del params, state
+    free_device()
+    out["counts"] = {n: w.launches for n, w in wrappers.items()}
+    return out
+
+
+def n_rank_2x2(mesh, ref_path) -> dict:
+    """(n2) on one rank of the 2x2 mesh with FSDP: qwen2-1.5b's first
+    N2_LAYERS layers in bf16, then the f32 twin on N2_TWIN_LAYERS held
+    to the single-device step's loss, grad norm and every gradient leaf
+    (made whole)."""
+    from repro_torch.distributed.sharding import tree_full
+    from repro_torch.training.data import synthetic_batches
+    from repro_torch.training.optimizer import tree_map
+    from repro_torch.training.train_loop import (TrainConfig, batch_to,
+                                                 mesh_step_grads)
+    out = {"rank": mesh.rank}
+    wrappers = kernel_counts()
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    cfg, opt, rules, specs, params, state = twin_setup(
+        mesh.device, N2_LAYERS, torch.bfloat16, mesh, fsdp=True)
+    params, state, losses, norms, ms = mesh_steps(
+        mesh, cfg, opt, rules, params, state,
+        synthetic_batches(cfg.vocab_size, TRAIN_B, TRAIN_S, seed=0), 2)
+    out["bf16"] = dict(losses=losses, norms=norms, ms=ms,
+                       peak=torch.cuda.max_memory_allocated(),
+                       held=held_digest(params, specs))
+    del params, state
+    free_device()
+    cfg, opt, rules, specs, params, state = twin_setup(
+        mesh.device, N2_TWIN_LAYERS, torch.float32, mesh, fsdp=True)
+    batch = batch_to(twin_batch(cfg), mesh.device)
+    loss, grads = mesh_step_grads(cfg, params, batch, TrainConfig(
+        remat=False), mesh, rules, specs)
+    grads = tree_full(grads, specs, mesh)
+    out["f32"] = dict(loss=loss.item())
+    if mesh.rank == 0:
+        ref = torch.load(ref_path)
+        errs = {}
+        tree_map(lambda path, g, r: errs.__setitem__(path, (
+            (g.cpu() - r).abs().max() / r.abs().max().clamp_min(1e-30))
+            .item()), _paths(grads), grads, ref["grads"])
+        leaf = max(errs, key=errs.get)
+        out["f32"].update(worst=(errs[leaf], leaf), ref_loss=ref["loss"])
+    del params, state, grads
+    free_device()
+    out["counts"] = {n: w.launches for n, w in wrappers.items()}
+    return out
+
+
+def _paths(tree, prefix=""):
+    """The tree with each leaf replaced by its path."""
+    if isinstance(tree, dict):
+        return {k: _paths(v, f"{prefix}/{k}") for k, v in tree.items()}
+    return prefix
+
+
+def mesh_train_phase(dev) -> list:
+    """(n) training over a mesh, the ranks sharing the card over gloo:
+    each single-device reference first, then freed; (n1) and (n3) in one
+    1x2 spawn, (n2) in a 2x2 one. Returns the ranks' kernel counts."""
+    import shutil
+    from repro_torch.launch import train as LT
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.training.optimizer import tree_map
+    from repro_torch.training.train_loop import (TrainConfig, batch_to,
+                                                 build_train_step,
+                                                 loss_and_grads)
+    t0 = time.perf_counter()
+    # the single-device references
+    torch.cuda.reset_peak_memory_stats()
+    run = LT.prepare(N1_ARGS, None)
+    one = dict(zip(("params", "state", "losses", "norms", "ms"), timed_steps(
+        build_train_step(run["cfg"], run["opt"], TrainConfig(remat=False)),
+        run["params"], run["state"], run["data"], N1_ARGS["steps"])))
+    one["peak"] = torch.cuda.max_memory_allocated()
+    del run, one["params"], one["state"]
+    free_device()
+    patched = moe_mod.moe_apply
+    moe_mod.moe_apply = slicewise_moe(1, 2)
+    try:
+        cfg, opt, _, params, state = n3_setup(dev)
+        three = dict(zip(("params", "state", "losses", "norms", "ms"),
+                         timed_steps(build_train_step(cfg, opt, TrainConfig(
+                             remat=False)), params, state, n3_batches(cfg),
+                             2)))
+    finally:
+        moe_mod.moe_apply = patched
+    del params, state, three["params"], three["state"]
+    free_device()
+    cfg, _, _, _, params, _ = twin_setup(dev, N2_TWIN_LAYERS, torch.float32)
+    loss, _, grads = loss_and_grads(cfg, params, batch_to(twin_batch(cfg),
+                                                          dev))
+    tmp = smoke_dir()
+    ref_path = tmp / "n2_twin.pt"
+    torch.save({"loss": loss.item(),
+                "grads": tree_map(lambda g: g.cpu(), grads)}, ref_path)
+    del params, grads
+    free_device()
+    log(f"[mesh-train] single-device references: {time.perf_counter() - t0:.1f} s")
+    try:
+        r12 = spawn("1x2", n_rank_1x2, str(tmp / "n1"), device="cuda",
+                    timeout_s=500)
+        r22 = spawn("2x2", n_rank_2x2, str(ref_path), device="cuda",
+                    timeout_s=400)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    card_line = card()
+    # (n1)
+    for r in r12:
+        n1 = r["n1"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(n1["losses"],
+                                                      one["losses"]))
+        log(f"[mesh-train] (n1) qwen2-1.5b whole, 1x2 rank {r['rank']}, "
+            f"the launcher's prepare + train_loop: loss {n1['losses']} (one "
+            f"device {one['losses']}, worst rel {rel:.2e}); "
+            f"{n1['call_s']:.1f} s for the call, ms a step "
+            f"{[round(v, 2) for v in n1['ms']]} then the last step and the "
+            f"checkpoint's save {n1['last_and_save_s']:.1f} s (one device "
+            f"ms a step {[round(v, 2) for v in one['ms']]}); --resume's "
+            f"restore onto the mesh {n1['restore_s']:.1f} s, from step "
+            f"{n1['start']}, every block bit-equal {n1['restored']}; peak "
+            f"{n1['peak'] / 2 ** 30:.2f} GiB (one device "
+            f"{one['peak'] / 2 ** 30:.2f}), parameters held "
+            f"{n1['local_gib']:.2f} GiB; {card_line}")
+        check(len(n1["losses"]) == N1_ARGS["steps"] and rel <= N_LOSS_TOL,
+              f"(n1) rank {r['rank']} losses {n1['losses']}: {rel}")
+        check(n1["peak"] < one["peak"],
+              f"(n1) rank {r['rank']} peak {n1['peak']} >= {one['peak']}")
+        check(n1["start"] == N1_ARGS["steps"] and n1["restored"],
+              f"(n1) rank {r['rank']}: restored from {n1['start']}, "
+              f"bit-equal {n1['restored']}")
+    check(r12[0]["n1"]["held"] == r12[1]["n1"]["held"]
+          and r12[0]["n1"]["held"], "(n1) replicated leaves differ")
+    # (n3)
+    for r in r12:
+        n3 = r["n3"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(n3["losses"],
+                                                      three["losses"]))
+        log(f"[mesh-train] (n3) phi3.5-moe {N3_LAYERS} of 32 layers, 1x2 "
+            f"rank {r['rank']} ({n3['experts'][0]} of {n3['experts'][1]} "
+            f"experts): loss "
+            f"{n3['losses']} (one device, slice-wise moe "
+            f"{three['losses']}, worst rel {rel:.2e}), grad norm "
+            f"{n3['norms']} (one device {three['norms']}); ms a step "
+            f"{[round(v, 2) for v in n3['ms']]} (one device "
+            f"{[round(v, 2) for v in three['ms']]}); peak "
+            f"{n3['peak'] / 2 ** 30:.2f} GiB")
+        check(2 * n3["experts"][0] == n3["experts"][1] and rel <= N_LOSS_TOL,
+              f"(n3) rank {r['rank']}: experts {n3['experts']}, rel {rel}")
+    check(r12[0]["n3"]["held"] == r12[1]["n3"]["held"],
+          "(n3) replicated leaves differ")
+    # (n2)
+    held = [r["bf16"]["held"] for r in r22]
+    for r in r22:
+        b = r["bf16"]
+        log(f"[mesh-train] (n2) qwen2-1.5b {N2_LAYERS} of 28 layers bf16, "
+            f"2x2 fsdp rank {r['rank']}: loss {b['losses']}, grad norm "
+            f"{b['norms']}; ms a step {[round(v, 2) for v in b['ms']]}; "
+            f"peak {b['peak'] / 2 ** 30:.2f} GiB")
+        check(all(map(math.isfinite, b["losses"] + b["norms"])),
+              f"(n2) rank {r['rank']} non-finite {b}")
+    check(all(h == held[0] for h in held), "(n2) replicated leaves differ")
+    f32 = r22[0]["f32"]
+    rel = abs(f32["loss"] - f32["ref_loss"]) / abs(f32["ref_loss"])
+    log(f"[mesh-train] (n2) f32 twin, {N2_TWIN_LAYERS} layer, 2x2 fsdp: loss "
+        f"{f32['loss']:.6f} vs one device {f32['ref_loss']:.6f} (rel "
+        f"{rel:.2e}); worst gradient leaf {f32['worst'][1]} "
+        f"{f32['worst'][0]:.2e} of its max")
+    check(all(r["f32"]["loss"] == f32["loss"] for r in r22),
+          "(n2) ranks' losses differ")
+    check(rel <= N_TWIN_TOL and f32["worst"][0] <= N_TWIN_TOL,
+          f"(n2) f32 twin: loss rel {rel}, gradient {f32['worst']}")
+    log(f"[mesh-train] phase (n): {time.perf_counter() - t0:.1f} s")
+    return [r["counts"] for r in r12 + r22]
 
 
 # ======================================================================
@@ -4237,8 +4633,8 @@ def main() -> int:
     log(f"[frontend] P90 TTFP: liveserve (f1) {f1['p90_ttfp']:.4f} s, "
         f"fcfs (f2) {f2['p90_ttfp']:.4f} s (random weights; no ordering "
         f"is held)")
-    _, counts = main_path("replay twin (f3)", replay_phase, cfg, params,
-                          dev)
+    _, counts = main_path("replay twin (f3)", replay_phase,
+                          *first_layers(cfg, params, CUT_LAYERS), dev)
     add(counts, {"paged_prefill_attention": 0, "paged_attention": 0})
     log(f"[frontend] phase (f): {time.perf_counter() - t_f:.1f} s")
     # (g) the sharded page plane on the first CUT_LAYERS layers: its
@@ -4341,6 +4737,12 @@ def main() -> int:
     t_l = time.perf_counter()
     training_phase(dev)
     log(f"[train] phase (l): {time.perf_counter() - t_l:.1f} s")
+    # (n) training over a mesh: no kernel on its path either; each rank
+    # zeroes and returns its own counts
+    for counts in mesh_train_phase(dev):
+        check(not any(counts.values()),
+              f"training over a mesh: kernel launches {counts}, expected "
+              "none")
     # (m) kernel autotune: the engine's fused round with the cache
     for counts in autotune_phase(dev):
         add(counts, {"paged_prefill_attention": 0})

@@ -8,9 +8,10 @@
   marks the source straggling; the fleet router drains a replica that
   keeps straggling and lifts the drain once it recovers.
 
-The reference module's ``elastic_rescale`` (re-place checkpointed state
-on a resized mesh) waits for the mesh half of training (ROADMAP.md
-queue 1 item 7).
+A checkpoint saved on a mesh restores onto one device or a mesh of the
+same rules (``training/checkpoint.py``); the reference module's
+``elastic_rescale`` (re-place checkpointed state on a resized mesh) is
+not ported (ROADMAP.md queue 1 item 7b-ii).
 """
 from __future__ import annotations
 

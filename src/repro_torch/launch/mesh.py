@@ -1,4 +1,4 @@
-"""Serving meshes for the sharded page plane: ``DxM`` process groups.
+"""``DxM`` meshes of processes: the sharded page plane's and training's.
 
 The JAX package's ``make_serving_mesh("DxM")`` lays a ('data', 'model')
 mesh over the devices of one process. Here every mesh position is a
@@ -12,7 +12,12 @@ groups those ranks share:
 - one 'model' group per data index ``d`` (ranks ``d*M .. d*M + M-1``):
   the page store shards over it, and the plane's collectives run in it;
 - the D data replicas, which run the same batch (the reference
-  replicates the decode batch over 'data' too).
+  replicates the decode batch over 'data' too);
+- for training (D > 1), one 'data' group per model index ``m`` (ranks
+  ``m, M + m, 2M + m, ...``): the batch rows, FSDP leaves and the
+  gradient sums go over it (``distributed/collectives.py``). These
+  groups come after the others, so the serving meshes' groups are the
+  ones they always were.
 
 Rank ``r`` runs on ``cuda:(r % device_count)``. One rank a card talks
 NCCL. Ranks that share a card cannot (NCCL refuses two ranks on one
@@ -44,6 +49,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.distributed.collectives import all_gather
+
 TIMEOUT_S = 90.0
 _HEADER = 64          # int64 slots of a command's header
 _TARGET = _HEADER - 1   # the slot that carries the command's engine index
@@ -63,7 +70,7 @@ def parse_mesh(spec: str) -> tuple:
 @dataclass
 class ServingMesh:
     """One rank's view of a ``DxM`` mesh: its place, its device and the
-    groups and collectives the sharded page plane uses."""
+    groups and collectives the sharded page plane and training use."""
     data: int
     model: int
     rank: int
@@ -71,6 +78,9 @@ class ServingMesh:
     backend: str
     model_group: object = field(repr=False)
     cmd_group: object = field(repr=False)
+    data_group: object = field(default=None, repr=False)
+
+    axis_names = ("data", "model")
 
     @property
     def world(self) -> int:
@@ -80,6 +90,18 @@ class ServingMesh:
     def idx(self) -> int:
         """This rank's index on the 'model' axis (its shard)."""
         return self.rank % self.model
+
+    def coord(self, axis: str) -> int:
+        """This rank's index on ``axis`` ('data' or 'model')."""
+        return self.rank // self.model if axis == "data" else self.idx
+
+    def group(self, axis: str):
+        return self.data_group if axis == "data" else self.model_group
+
+    def gather_axis(self, t: torch.Tensor, dim: int,
+                    axis: str) -> torch.Tensor:
+        """The ``axis`` ranks' ``t`` laid side by side along ``dim``."""
+        return all_gather(t, dim, self, axis)
 
     @property
     def is_leader(self) -> bool:
@@ -195,7 +217,13 @@ def make_serving_mesh(spec: str, *, rank: int, init_method: str,
             model_group = g
     cmd_group = dist.group.WORLD if backend == "gloo" \
         else dist.new_group(backend="gloo", timeout=timeout)
-    mesh = ServingMesh(d, m, rank, dev, backend, model_group, cmd_group)
+    data_group = None
+    for mi in range(m if d > 1 else 0):
+        g = dist.new_group(list(range(mi, d * m, m)), timeout=timeout)
+        if mi == rank % m:
+            data_group = g
+    mesh = ServingMesh(d, m, rank, dev, backend, model_group, cmd_group,
+                       data_group)
     if rank == 0:
         shared = dev.type == "cuda" and world > n_dev
         where = (f"ranks on cuda:{[r % n_dev for r in range(world)]}"

@@ -16,6 +16,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import collectives as C
+
 
 # ----------------------------------------------------------------- init
 def _trunc_normal(generator, shape, device) -> torch.Tensor:
@@ -130,6 +132,17 @@ def mlp_apply(params, x, kind: str):
         h = F.gelu(x @ params["w_up"] + params["b_up"], approximate="tanh")
         return h @ params["w_down"] + params["b_down"]
     raise ValueError(f"unknown mlp kind {kind!r}")
+
+
+def mlp_tp(params, x, kind: str, mesh):
+    """``mlp_apply`` with ``d_ff`` sharded over the mesh's 'model' axis
+    (``w_gate``/``w_up``'s columns, ``w_down``'s rows, ``b_up``): x
+    enters through ``copy_to_model`` and the partial outputs sum
+    through ``reduce_from_model``. The kinds without an output bias."""
+    if "b_down" in params:
+        raise ValueError(f"mlp_tp: the {kind!r} kind's output bias")
+    return C.reduce_from_model(
+        mlp_apply(params, C.copy_to_model(x, mesh), kind), mesh)
 
 
 def mlp_init(generator, d_model: int, d_ff: int, kind: str, dtype, device):

@@ -51,12 +51,17 @@ Pallas kernel.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import ShardingRules, local_block, \
+    spec_axes
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_prefill import flash_prefill
 from repro_torch.models import layers as L
@@ -211,6 +216,14 @@ def init_params(cfg, generator: torch.Generator, device):
     params["layers"] = _stacked(
         n, lambda: layer(generator, cfg, dtype, device))
     return params
+
+
+@functools.lru_cache(maxsize=16)
+def param_shapes(cfg):
+    """``cfg``'s parameter tree as meta tensors: every leaf's full shape
+    and dtype, nothing allocated (the reference's
+    ``launch/specs.py::param_shapes``, which the sharding rules read)."""
+    return init_params(cfg, None, "meta")
 
 
 def _to_tensor(a, device, dtype):
@@ -369,19 +382,24 @@ def _attn_train(cfg, lp, x, positions, mask):
 
 def forward(cfg, params, tokens, *, frontend_embeds=None, prefix_len=None,
             enc_frames=None, mesh=None, remat: bool = False,
-            seq_spec=None):
+            seq_spec=None, rules=None):
     """tokens [B, S_text] -> (logits [B, S_total, V] f32, aux loss f32
     scalar), the reference's training graph. ``frontend_embeds`` [B, F,
     d] are prepended (vlm) and ``prefix_len`` [B] makes the mask
     bidirectional within the prefix; ``enc_frames`` [B, F, d] feed the
     encoder (encdec). ``remat`` recomputes each stacked layer's body in
     the backward (``torch.utils.checkpoint``), as the reference's
-    ``jax.checkpoint`` does; ``seq_spec`` (a sharding of the residual
-    stream) means nothing without a mesh and is ignored, as the
-    reference's is there. A mesh waits for the mesh half of training."""
+    ``jax.checkpoint`` does; ``seq_spec`` (the reference's sharding of
+    the residual stream) changes no value and is ignored.
+
+    ``mesh`` (a rank's ``launch/mesh.py`` mesh) runs the dense and moe
+    families (no mla) over it, on the blocks of ``params`` that
+    ``rules`` (default ``ShardingRules(cfg, mesh)``) give this rank,
+    with ``tokens`` this data rank's rows: ``_forward_mesh``."""
     _check_ported(cfg)
     if mesh is not None:
-        raise _not_ported("forward over a mesh", "7")
+        return _forward_mesh(cfg, params, tokens, mesh,
+                             rules or ShardingRules(cfg, mesh), remat)
     x = _embed(cfg, params, tokens)
     x = _frontend_concat(x, frontend_embeds)
     B, S, _ = x.shape
@@ -441,19 +459,39 @@ def forward(cfg, params, tokens, *, frontend_embeds=None, prefix_len=None,
 
 
 def loss_fn(cfg, params, batch, *, mesh=None, remat: bool = False,
-            seq_spec=None):
+            seq_spec=None, rules=None):
     """batch: ``tokens`` [B, S], ``labels`` [B, S], optional ``weights``
     [B, S], ``patches`` [B, F, d] with ``prefix_len`` [B] (vlm) and
     ``frames`` [B, F, d] (encdec). Returns (loss, {"ce", "aux"}): the
     label-weighted cross-entropy over the text positions plus
     ``Z_LOSS_COEF`` times the weighted mean squared log-partition and
-    ``MOE_AUX_COEF`` times the moe aux loss, in f32."""
+    ``MOE_AUX_COEF`` times the moe aux loss, in f32.
+
+    Over a ``mesh``, ``batch`` is the whole (micro)batch, the same on
+    every rank; this rank takes its rows by ``rules.batch`` and returns
+    its data rank's share of the loss and of ``ce``: its numerators
+    over the whole batch's denominators (the weights' sum), a batch
+    replicated over 'data' (its rows do not divide it) and the aux term
+    each divided by the data ranks' count, so that the shares sum over
+    'data' to the reference's values, and so do their gradients."""
+    share, denom = 1.0, None
+    if mesh is not None:
+        rules = rules or ShardingRules(cfg, mesh)
+        specs = rules.batch(batch)
+        if "data" not in spec_axes(specs["tokens"]):
+            share = 1.0 / mesh.data
+        w = batch.get("weights")
+        denom = torch.clamp(w.sum(), min=1.0) if w is not None else \
+            torch.tensor(float(batch["labels"].numel()),
+                         device=batch["labels"].device)
+        batch = {k: local_block(v, specs[k], mesh)
+                 for k, v in batch.items()}
     logits, aux = forward(
         cfg, params, batch["tokens"],
         frontend_embeds=batch.get("patches"),
         enc_frames=batch.get("frames"),
         prefix_len=batch.get("prefix_len"),
-        mesh=mesh, remat=remat, seq_spec=seq_spec)
+        mesh=mesh, remat=remat, seq_spec=seq_spec, rules=rules)
     labels = batch["labels"]
     # the frontend's positions carry no labels
     logits = logits[:, logits.shape[1] - labels.shape[1]:]
@@ -462,12 +500,166 @@ def loss_fn(cfg, params, batch, *, mesh=None, remat: bool = False,
     w = batch.get("weights")
     if w is None:
         w = torch.ones_like(ll)
-    denom = torch.clamp(w.sum(), min=1.0)
-    ce = -(ll * w).sum() / denom
+    if denom is None:
+        denom = torch.clamp(w.sum(), min=1.0)
+    ce = -(ll * w).sum() / denom * share
     # the z-loss stabiliser
     z = (torch.logsumexp(logits, dim=-1).square() * w).sum()
-    total = ce + Z_LOSS_COEF * z / denom + MOE_AUX_COEF * aux
+    aux_coef = MOE_AUX_COEF / (1 if mesh is None else mesh.data)
+    total = ce + Z_LOSS_COEF * z / denom * share + aux_coef * aux
     return total, {"ce": ce, "aux": aux}
+
+
+# ======================================================================
+# the training graph over a mesh
+# ======================================================================
+MESH_FAMILIES = ("dense", "moe")
+
+
+def check_mesh_family(cfg) -> None:
+    """The families the mesh path runs: dense, and moe without mla."""
+    if cfg.family not in MESH_FAMILIES or cfg.mla is not None:
+        what = "mla" if cfg.mla is not None else f"the {cfg.family} family"
+        raise _not_ported(f"training {what} over a mesh", "7b-ii")
+
+
+def _fsdp(tree, specs, mesh):
+    """The leaves of a layer's tree that ``specs`` shard over 'data'
+    (FSDP), gathered whole for the layer that uses them."""
+    if isinstance(tree, dict):
+        return {k: _fsdp(v, specs[k], mesh) for k, v in tree.items()}
+    if "data" not in spec_axes(specs):
+        return tree
+    dim = next(i for i, e in enumerate(specs) if "data" in spec_axes([e]))
+    return C.gather_over_data(tree, dim, mesh)
+
+
+def _unstack_specs(specs):
+    """A stacked layer tree's specs without the leading [L] entry."""
+    if isinstance(specs, dict):
+        return {k: _unstack_specs(v) for k, v in specs.items()}
+    return type(specs)(*specs[1:])
+
+
+def _sharded(spec, dim: int) -> bool:
+    return "model" in spec_axes([spec[dim]])
+
+
+def _attn_mesh(cfg, lp, sp, x, positions, mask, mesh):
+    """A layer's attention half with ``wq`` sharded over heads (else the
+    whole attention on every rank, no collective): the normed input
+    enters through ``copy_to_model``, and so does every leaf the rank
+    holds whole (``wk``/``wv`` and their biases where the KV heads do
+    not divide 'model', the q/k norms), since each rank's gradient of
+    it is a partial sum; ``wo``'s output leaves through
+    ``reduce_from_model``. Replicated KV heads are cut to the ones of
+    this rank's query heads (global head // G)."""
+    a, s = lp["attn"], sp["attn"]
+    h = L.rms_norm(x, lp["ln1"], cfg.rms_eps)
+    if not _sharded(s["wq"], 1):
+        q, k, v = L.attn_project_qkv(a, cfg, h, positions)
+        return x + L.attn_output(a, L.gqa_attention(q, k, v, mask))
+    a = {n: t if "model" in spec_axes(s[n]) else C.copy_to_model(t, mesh)
+         for n, t in a.items()}
+    q, k, v = L.attn_project_qkv(a, cfg, C.copy_to_model(h, mesh),
+                                 positions)
+    if not _sharded(s["wk"], 1):
+        hl = q.shape[2]
+        kv = (mesh.idx * hl + torch.arange(hl, device=q.device)) \
+            // (cfg.num_heads // cfg.num_kv_heads)
+        k, v = k[:, :, kv], v[:, :, kv]
+    out = L.attn_output(a, L.gqa_attention(q, k, v, mask))
+    return x + C.reduce_from_model(out, mesh)
+
+
+def _mlp_mesh(cfg, lp, sp, x, mesh, kind):
+    """A layer's MLP half and its aux loss (None for a dense MLP): the
+    moe layer's ``moe_ep``, or the MLP tensor-parallel over ``d_ff``
+    where it divides 'model' (else whole on every rank)."""
+    h = L.rms_norm(x, lp["ln2"], cfg.rms_eps)
+    if "moe" in lp:
+        y, aux = moe_mod.moe_apply(lp["moe"], h, cfg, mesh=mesh)
+        return x + y, aux
+    if _sharded(sp["mlp"]["w_up"], -1):
+        return x + L.mlp_tp(lp["mlp"], h, kind, mesh), None
+    return x + L.mlp_apply(lp["mlp"], h, kind), None
+
+
+def _embed_mesh(cfg, params, specs, tokens, mesh):
+    """The embedding's rows of this rank's vocabulary slice looked up,
+    the other tokens zero, summed over 'model' (exact: one nonzero
+    term)."""
+    w = _fsdp(params["embed"], specs["embed"], mesh)
+    if _sharded(specs["embed"], 0):
+        n = w.shape[0]
+        local = tokens - mesh.idx * n
+        hit = (local >= 0) & (local < n)
+        x = torch.where(hit[..., None], w[local.clamp(0, n - 1)], 0)
+        x = C.reduce_from_model(x, mesh)
+    else:
+        x = w[tokens]
+    x = x.to(cfg.activation_dtype())
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    return x
+
+
+def _logits_mesh(cfg, params, specs, x, mesh):
+    """The logits of this rank's vocabulary slice, gathered over 'model'
+    to the full [B, S, V] f32 (the loss then runs as on one device)."""
+    x = L.rms_norm(x, params["final_norm"], cfg.rms_eps)
+    if cfg.tie_embeddings:
+        w = _fsdp(params["embed"], specs["embed"], mesh).T
+        split = _sharded(specs["embed"], 0)
+    else:
+        w = _fsdp(params["unembed"], specs["unembed"], mesh)
+        split = _sharded(specs["unembed"], 1)
+    if split:
+        x = C.copy_to_model(x, mesh)
+    logits = (x @ w.to(x.dtype)).float()
+    if split:
+        logits = C.gather_from_model(logits, -1, mesh)
+    if cfg.logit_softcap:
+        logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+    return logits
+
+
+def _forward_mesh(cfg, params, tokens, mesh, rules, remat):
+    """``forward`` over a mesh, the dense and moe families: each leaf
+    this rank's block of it (``rules.params``), FSDP leaves gathered
+    over 'data' inside the layer that uses them (and, under ``remat``,
+    again in its recomputation), the collectives of
+    ``distributed/collectives.py`` where the reference's GSPMD puts
+    its own. Returns the full logits and the aux loss."""
+    check_mesh_family(cfg)
+    specs = rules.params(param_shapes(cfg))
+    x = _embed_mesh(cfg, params, specs, tokens, mesh)
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device).expand(B, S)
+    mask = L.attention_mask(positions, positions, causal=True,
+                            window=cfg.sliding_window)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def layer(h, lp, sp, kind):
+        lp = _fsdp(lp, sp, mesh)
+        h = _attn_mesh(cfg, lp, sp, h, positions, mask, mesh)
+        return _mlp_mesh(cfg, lp, sp, h, mesh, kind)
+
+    for lp, sp in zip(params.get("layers_pre", []),
+                      specs.get("layers_pre", [])):
+        # the leading dense layers: outside the remat
+        x, _ = layer(x, lp, sp, cfg.mlp_kind)
+    sp = _unstack_specs(specs["layers"])
+    for lp in _unstack(params["layers"]):
+        if remat:
+            x, a = checkpoint(layer, x, lp, sp, cfg.mlp_kind,
+                              use_reentrant=False)
+        else:
+            x, a = layer(x, lp, sp, cfg.mlp_kind)
+        if a is not None:
+            aux = aux + a
+    return _logits_mesh(cfg, params, specs, x, mesh), aux
 
 
 # ======================================================================

@@ -23,8 +23,15 @@ value that limits the ranks inside the buffer sized for the whole
 batch (packing the real tokens would need their count on the host, a
 sync every moe layer).
 
-The expert-parallel path (``moe_ep``: all_to_all over a mesh's expert
-axis) is not ported; ``moe_apply`` with a mesh raises.
+``moe_ep`` is the expert-parallel path over a ('data', 'model') mesh
+of ranks (training's): each 'model' rank routes its own slice of its
+data rank's tokens and holds E / M of the experts; two all-to-alls over
+'model' carry the dispatched tokens to their experts and back, and one
+all-gather restores the rows. Its numbers are the reference's
+``moe_ep``'s, not ``moe_local``'s on the whole batch: the capacity and
+the aux loss are each slice's. The reference's expert tensor
+parallelism over 'data' (``expert_tp``, the dry run's decode cells) is
+not ported: ``moe_apply`` refuses it.
 """
 from __future__ import annotations
 
@@ -33,7 +40,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense_init, mlp_apply, mlp_init
+from repro_torch.distributed import collectives as C
+from repro_torch.models.layers import dense_init, mlp_apply, mlp_init, \
+    mlp_tp
 
 
 # ----------------------------------------------------------------- init
@@ -197,9 +206,59 @@ def moe_local(params, x, cfg, valid=None):
     return y, aux
 
 
-def moe_apply(params, x, cfg, mesh=None, valid=None):
-    if mesh is not None:
+# ----------------------------------------------------------------- EP path
+def moe_ep(params, x, cfg, mesh):
+    """x [b, S, d]: this data rank's rows, the same on every 'model'
+    rank -> (y [b, S, d], aux), the reference's ``moe_ep`` with
+    ``expert_tp`` off. The expert leaves are this rank's E / M experts
+    (``[E/M, ...]``), the router whole; the shared experts' ``d_ff`` is
+    this rank's slice where it divides 'model', else whole.
+
+    The b * S tokens are padded with zeros to ``tm * M``; 'model' rank
+    ``m`` routes slice ``m`` (padding included, as the reference does),
+    with the capacity of ``tm`` tokens, and dispatches it [E, C, d];
+    an all-to-all gives each rank its experts' slots from every slice
+    [E/M, C * M, d], the experts run, and the all-to-all back returns
+    [E, C, d], combined in the reference's order. The slices are
+    gathered over 'model'. The aux loss is the mean of every (data,
+    model) slice's; its gradient is this rank's slice's over M (the
+    loss's data shares sum over 'data', ``models/model.py::loss_fn``)."""
+    m = cfg.moe
+    b, S, d = x.shape
+    M, E = mesh.model, m.num_experts
+    t = b * S
+    tm = -(-t // M)                                  # ceil
+    x2 = C.copy_to_model(x, mesh).reshape(t, d)
+    if tm * M > t:
+        x2 = torch.cat([x2, x2.new_zeros((tm * M - t, d))])
+    xs = x2[mesh.idx * tm:(mesh.idx + 1) * tm]
+    weights, sel, aux = route(C.copy_to_model(params["router"], mesh), xs,
+                              m.top_k)
+    cap = _capacity(tm, m.top_k, E, m.capacity_factor)
+    tok_idx, w_tab, tok_slots = build_dispatch(sel, weights, E, cap,
+                                               slots=True)
+    xe = torch.cat([xs, xs.new_zeros((1, d))])[tok_idx]      # [E, C, d]
+    xe = C.all_to_all_model(xe, 0, 1, mesh)                  # [E/M, C*M, d]
+    ye = C.all_to_all_model(expert_ffn(params, xe), 1, 0, mesh)
+    y = combine(tok_slots, ye * w_tab[..., None].to(ye.dtype))
+    y = C.gather_from_model(y, 0, mesh)[:t].reshape(b, S, d)
+    aux = C.mean_over_data(C.reduce_from_model(aux, mesh) / M, mesh)
+    if m.num_shared_experts:
+        f = m.d_ff_expert * m.num_shared_experts
+        sh = params["shared"]
+        y = y + (mlp_tp(sh, x, "swiglu", mesh)
+                 if sh["w_up"].shape[-1] < f else
+                 mlp_apply(sh, x, "swiglu"))
+    return y, aux
+
+
+def moe_apply(params, x, cfg, mesh=None, valid=None, expert_tp=False):
+    """``moe_local`` (``valid``: the real tokens), or over a mesh
+    ``moe_ep`` (every token routed, as the reference's)."""
+    if expert_tp:
         raise NotImplementedError(
-            "the expert-parallel moe over a mesh (moe_ep) is not ported "
-            "yet (ROADMAP.md queue 1 item 6)")
+            "expert tensor parallelism over 'data' (expert_tp) is not "
+            "ported yet (ROADMAP.md queue 1 item 7c)")
+    if mesh is not None:
+        return moe_ep(params, x, cfg, mesh)
     return moe_local(params, x, cfg, valid)

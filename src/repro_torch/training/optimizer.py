@@ -18,6 +18,15 @@ global-norm clip are f32 scalars on the parameters' device, computed
 there from Python numbers: an update copies nothing from the host, so
 the host never waits for the device inside it.
 
+Over a mesh (``mesh`` a rank's mesh, ``specs`` the tree of the
+parameters' specs, ``distributed/sharding.py``) every leaf is this
+rank's block, and the state's leaves follow their parameter's spec
+(``rules.opt_state``). AdamW stays elementwise. The reductions that
+cross a leaf's blocks sum over the axes the leaf is sharded on: the
+global norm (a leaf held whole on several ranks counts once), and
+Adafactor's row and column means, the mean of its row statistic and
+its update's RMS. Adafactor factors by the full shape.
+
 ``opt_update`` works in place under ``torch.no_grad()``: the master,
 the moments and the parameters are overwritten leaf by leaf (a copy of
 the whole state would not fit beside it at full width), and the same
@@ -29,6 +38,9 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import full_shape, spec_axes
 
 
 @dataclass(frozen=True)
@@ -83,14 +95,44 @@ def zeros_f32(p):
     return torch.zeros_like(p, dtype=torch.float32)
 
 
-def _global_norm(grads):
-    return torch.sqrt(sum(g.float().square().sum()
-                          for g in tree_leaves(grads)))
+def _global_norm(grads, mesh=None, specs=None):
+    if mesh is None:
+        return torch.sqrt(sum(g.float().square().sum()
+                              for g in tree_leaves(grads)))
+    # the leaves' squares summed by the axes they shard over, each sum
+    # then over its axes: in one order on every rank
+    pairs = []
+    tree_map(lambda g, s: pairs.append((g, s)), grads, specs)
+    parts = {}
+    for g, s in pairs:
+        key = tuple(sorted(spec_axes(s)))
+        parts[key] = parts.get(key, 0) + g.float().square().sum()
+    total = 0
+    for key in sorted(parts):
+        t = parts[key]
+        for axis in key:
+            t = C.all_reduce(t, mesh, axis)
+        total = total + t
+    return torch.sqrt(total)
 
 
-def _clip_scale(opt: OptConfig, grads):
-    gnorm = _global_norm(grads)
+def _clip_scale(opt: OptConfig, grads, mesh=None, specs=None):
+    gnorm = _global_norm(grads, mesh, specs)
     return gnorm, torch.clamp(opt.grad_clip / (gnorm + 1e-9), max=1.0)
+
+
+def _mean(x, dims, spec, mesh, keepdim=False):
+    """``x.mean(dims)`` (None: of every element) of a block, over the
+    whole leaf: the block means (equal blocks) summed over the axes of
+    those dims and divided by their sizes."""
+    if dims is None:
+        m, axes = x.mean(), spec_axes(spec or ())
+    else:
+        m = x.mean(dim=dims, keepdim=keepdim)
+        axes = spec_axes([spec[dims]]) if mesh is not None else ()
+    for axis in sorted(axes):
+        m = C.all_reduce(m, mesh, axis) / mesh.shape[axis]
+    return m
 
 
 def _step_of(params):
@@ -107,10 +149,11 @@ def adamw_init(params):
 
 
 @torch.no_grad()
-def adamw_update(opt: OptConfig, grads, state, params):
+def adamw_update(opt: OptConfig, grads, state, params, mesh=None,
+                 specs=None):
     state["step"] += 1
     t = state["step"].float()
-    gnorm, scale = _clip_scale(opt, grads)
+    gnorm, scale = _clip_scale(opt, grads, mesh, specs)
     bc1 = 1 - torch.pow(opt.b1, t)
     bc2 = 1 - torch.pow(opt.b2, t)
 
@@ -133,33 +176,43 @@ def _factored(shape, min_dim) -> bool:
     return len(shape) >= 2 and shape[-1] >= min_dim and shape[-2] >= min_dim
 
 
-def adafactor_init(params, *, min_dim: int = 128):
-    def vstate(p):
+def _no_specs(params):
+    return tree_map(lambda _: None, params)
+
+
+def adafactor_init(params, *, min_dim: int = 128, mesh=None, specs=None):
+    def vstate(p, s):
         z = dict(dtype=torch.float32, device=p.device)
-        if _factored(p.shape, min_dim):
+        full = p.shape if mesh is None else full_shape(p.shape, s, mesh)
+        if _factored(full, min_dim):
             return {"vr": torch.zeros(p.shape[:-1], **z),
                     "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], **z)}
         return {"v": torch.zeros(p.shape, **z)}
 
     return {"step": _step_of(params),
             "master": tree_map(_f32, params),
-            "v": tree_map(vstate, params)}
+            "v": tree_map(vstate, params, specs or _no_specs(params))}
 
 
 @torch.no_grad()
-def adafactor_update(opt: OptConfig, grads, state, params):
+def adafactor_update(opt: OptConfig, grads, state, params, mesh=None,
+                     specs=None):
     state["step"] += 1
     beta2 = 1.0 - torch.pow(state["step"].float(), -opt.decay_rate)
-    gnorm, scale = _clip_scale(opt, grads)
+    gnorm, scale = _clip_scale(opt, grads, mesh, specs)
 
-    def upd(p, g, m, v):
+    def upd(p, g, m, v, s):
         g = g.float() * scale
         g2 = g.square() + 1e-30
         if "vr" in v:
-            v["vr"].copy_(beta2 * v["vr"] + (1 - beta2) * g2.mean(dim=-1))
-            v["vc"].copy_(beta2 * v["vc"] + (1 - beta2) * g2.mean(dim=-2))
+            v["vr"].copy_(beta2 * v["vr"]
+                          + (1 - beta2) * _mean(g2, -1, s, mesh))
+            v["vc"].copy_(beta2 * v["vc"]
+                          + (1 - beta2) * _mean(g2, -2, s, mesh))
             del g2
-            denom = torch.clamp(v["vr"].mean(dim=-1, keepdim=True),
+            # vr's last dim is the parameter's second to last
+            denom = torch.clamp(_mean(v["vr"], -1, s and s[:-1], mesh,
+                                      keepdim=True),
                                 min=1e-30)[..., None]      # [..., 1, 1]
             u = g * torch.rsqrt(v["vr"][..., None] / denom) \
                 * torch.rsqrt(v["vc"][..., None, :])
@@ -168,27 +221,57 @@ def adafactor_update(opt: OptConfig, grads, state, params):
             u = g * torch.rsqrt(v["v"] + 1e-30)
         del g
         # update clipping (RMS <= 1) per the adafactor recipe
-        rms = torch.sqrt(u.square().mean() + 1e-30)
+        rms = torch.sqrt(_mean(u.square(), None, s, mesh) + 1e-30)
         u = u / torch.clamp(rms, min=1.0)
         if m.dim() >= 2:
             u = u + opt.weight_decay * m
         m.copy_(m - opt.lr * u)
         p.copy_(m)
 
-    tree_map(upd, params, grads, state["master"], state["v"])
+    tree_map(upd, params, grads, state["master"], state["v"],
+             specs or _no_specs(params))
     return params, state, {"grad_norm": gnorm}
 
 
 # ---------------------------------------------------------------- facade
-def opt_init(opt: OptConfig, params):
+def opt_init(opt: OptConfig, params, mesh=None, specs=None):
     if opt.kind == "adamw":
         return adamw_init(params)
-    return adafactor_init(params, min_dim=opt.factored_min_dim)
+    return adafactor_init(params, min_dim=opt.factored_min_dim, mesh=mesh,
+                          specs=specs)
 
 
-def opt_update(opt: OptConfig, grads, state, params):
+def opt_update(opt: OptConfig, grads, state, params, mesh=None,
+               specs=None):
     """One update, in place: returns (params, state, {"grad_norm"}),
     the tensors it was given."""
     if opt.kind == "adamw":
-        return adamw_update(opt, grads, state, params)
-    return adafactor_update(opt, grads, state, params)
+        return adamw_update(opt, grads, state, params, mesh, specs)
+    return adafactor_update(opt, grads, state, params, mesh, specs)
+
+
+def state_shapes(state, shapes):
+    """The full shapes of an optimizer state's leaves, as meta tensors,
+    from its parameters' (``shapes``, a tree of anything with a
+    ``.shape``): ``master``/``mu``/``nu`` theirs, Adafactor's ``v``
+    theirs, ``vr`` without the last dim, ``vc`` without the one before;
+    ``step`` a scalar."""
+    def meta(shape):
+        return torch.empty(tuple(shape), device="meta")
+
+    def v(p, st):
+        full = tuple(p.shape)
+        if "vr" in st:
+            return {"vr": meta(full[:-1]),
+                    "vc": meta(full[:-2] + full[-1:])}
+        return {"v": meta(full)}
+
+    out = {}
+    for k, sub in state.items():
+        if k == "step":
+            out[k] = meta(())
+        elif k == "v":
+            out[k] = tree_map(v, shapes, sub)
+        else:
+            out[k] = tree_map(lambda p: meta(p.shape), shapes)
+    return out

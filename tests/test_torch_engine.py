@@ -323,11 +323,12 @@ def test_bf16_offload_reload_bit_exact():
     eng.check_invariants()
 
 
-@pytest.mark.parametrize("family,item", [("moe", "item 6")])
+@pytest.mark.parametrize("family,item", [("moe", "item 7c")])
 def test_out_of_slice_options_raise(tiny, family, item):
     """What the family still lacks in the port: the paged engine serves
-    the moe family, but its expert-parallel layer over a mesh
-    (``moe_ep``) is not ported."""
+    the moe family and training runs its expert-parallel layer over a
+    mesh (``moe_ep``), but the expert tensor parallelism over 'data'
+    (``expert_tp``, the dry run's) is not ported."""
     from repro_torch.models.moe import moe_apply
     cfg = reduced(get_config("phi3.5-moe-42b-a6.6b"), layers=2,
                   d_model=64, vocab=331)
@@ -335,7 +336,7 @@ def test_out_of_slice_options_raise(tiny, family, item):
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     lp = tpe.layer_params(params)[0]["moe"]
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        moe_apply(lp, torch.zeros((1, 2, 64)), cfg, mesh=object())
+        moe_apply(lp, torch.zeros((1, 2, 64)), cfg, expert_tp=True)
 
 
 def _drive_add_session(make, cfg, seed):

@@ -336,8 +336,3 @@ def test_moe_init_tree_matches_jax():
     assert got == want
     assert got["router"] == ((D, 16), "float32")
 
-
-def test_moe_apply_on_a_mesh_raises():
-    _, tcfg = _cfgs(4, 2, 1.25, False)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        tmoe.moe_apply({}, torch.zeros(1, 2, D), tcfg, mesh=object())

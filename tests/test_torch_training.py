@@ -21,9 +21,9 @@
   the JAX package restored here and one written here restored there,
   and the reference's bf16 fault: its own restore gives 2-byte voids,
   the port restores the same bits as bf16 and writes the same bytes;
-- ``run_resilient``; the launcher on the CPU with ``--resume``, its
-  refusal of ``--mesh`` and ``--distributed``, and its default device
-  raising without a GPU.
+- ``run_resilient``; the launcher on the CPU with ``--resume``, and its
+  default device raising without a GPU (its ``--mesh`` and
+  ``--distributed``: ``tests/test_torch_mesh_launch.py``).
 """
 import os
 import threading
@@ -370,14 +370,6 @@ def test_launcher_trains_and_resumes_on_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "resumed from step 20" in out
     assert out.splitlines()[-1].startswith("step     4 loss")
-
-
-@pytest.mark.parametrize("flag", [["--mesh", "1x2"], ["--distributed"]])
-def test_launcher_refuses_mesh_flags(flag, capsys):
-    with pytest.raises(SystemExit):
-        launch_train.main(["--device", "cpu", "--reduced"] + flag)
-    err = capsys.readouterr().err
-    assert f"{flag[0]} is not ported yet (ROADMAP.md queue 1 item 7)" in err
 
 
 def test_launcher_defaults_to_cuda():
