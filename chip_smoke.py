@@ -80,7 +80,7 @@ read just after:
   their plain versions; (i1) paligemma-3b whole (18 layers, bf16) on
   both planes of phase (b)'s trace, and its f32 twin on both planes and
   through the per-token plane's dense graft, held to the B = 1 greedy
-  streams; (i2) phi3.5-moe at full width on 4 of its 32 layers (16
+  streams; (i2) phi3.5-moe at full width on 2 of its 32 layers (16
   experts, top-2): bf16 at the published capacity factor on both
   planes (its streams against B = 1 logged: capacity drops tie a token
   to its batch), its fused streams unchanged when the padded query
@@ -106,15 +106,15 @@ read just after:
   nemotron-4's heads, at multi-head latent attention's (128 heads of
   192, V's 128 columns padded) and windowed at h2o-danube's (4096,
   S 4095-5000), each against its plain version and timed beside SDPA;
-  (k1) deepseek-v2-236b at full width on its first 6 of 60 layers (MLA,
+  (k1) deepseek-v2-236b at full width on its first 4 of 60 layers (MLA,
   160 experts top-6) on the single-turn engine, 4 prompts of 64-2048
   tokens, against its plain prefill, and its f32 twin on 2 layers held
-  to B = 1; (k2) nemotron-4-340b at full width on its first 4 of 96
+  to B = 1; (k2) nemotron-4-340b at full width on its first 2 of 96
   layers on both planes of trace (b), and its f32 twin on 1 layer held
   to B = 1; (k3) h2o-danube-1.8b whole on the single-turn engine,
   prompts of 1171-5000 tokens on a 4096-slot ring, bf16 and f32 (f32
   held to B = 1), against the plain versions; (k4) qwen3-4b at full
-  width on 18 of its 36 layers in f32 on both planes of trace (b), held
+  width on 9 of its 36 layers in f32 on both planes of trace (b), held
   to B = 1;
 - (l) single-device training, no kernel on its path (each part's
   counts must stay 0): (l0) qwen2-1.5b whole (28 layers, bf16, AdamW)
@@ -158,7 +158,16 @@ read just after:
   gradient leaf (made whole) are held to one device's at 1e-4; (n3)
   phi3.5-moe at full width on 2 of 32 layers on 1x2 (8 of 16 experts a
   rank, Adafactor), held to one device's step with the slice-wise moe
-  (``slicewise_moe``, the checker);
+  (``slicewise_moe``, the checker); (n4) in the same 1x2 ranks, the
+  other families at full width in bf16, 2 steps each held to one
+  device's losses: paligemma-3b on 2 of 18 layers with 256 patches,
+  mamba2-1.3b on 4 of 48, recurrentgemma-9b on one group,
+  whisper-tiny whole over 1500 frames, deepseek-v2-236b on 2 of 60
+  (mla, Adafactor; the slice-wise moe the checker); in (n2)'s 2x2
+  ranks, ``compressed_psum`` of each rank's f32 twin gradients over
+  'data' within 0.02 of the exact mean's max, and the bf16 parameters
+  saved from the mesh and ``elastic_rescale``d onto a 1x4 view of the
+  four ranks, bit-equal to its ``local_block`` of each saved leaf;
 
 and checks what comes out. Every phase is checked; any failure exits
 non-zero. The last line of standard output is
@@ -172,6 +181,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import itertools
 import json
 import math
 import subprocess
@@ -2656,10 +2666,10 @@ def launcher_mesh_fleet_phase() -> None:
 # paligemma-3b's heads: 8 query heads on one KV head of 256, so a fused
 # round of 16 tokens has 128 rows (two row groups of the paged kernel)
 PALI_HEADS = dict(Hq=8, Hkv=1, D=256)
-# phi3.5-moe at full width with its depth cut: 4 of its 32 layers (all
-# 32 are ~84 GB of bf16 weights, more than the card holds; 8 before the
-# script's time limit asked for more room)
-PHI_LAYERS = 4
+# phi3.5-moe at full width with its depth cut: 2 of its 32 layers (all
+# 32 are ~84 GB of bf16 weights, more than the card holds; 8, then 4,
+# before the script's time limit asked for more room)
+PHI_LAYERS = 2
 
 
 def paged_dim_rows(dev, tag, heads, g, timer) -> dict:
@@ -3315,8 +3325,8 @@ K0_FLASH_CASES = [
 # the depth cuts of the two models that do not fit the card whole (all
 # 60 layers of deepseek-v2 are ~472 GB of bf16 weights, all 96 of
 # nemotron-4 ~680 GB); their f32 twins, held to B = 1, keep fewer
-DEEPSEEK_LAYERS, DEEPSEEK_F32_LAYERS = 6, 2
-NEMOTRON_LAYERS, NEMOTRON_F32_LAYERS = 4, 1
+DEEPSEEK_LAYERS, DEEPSEEK_F32_LAYERS = 4, 2   # 6 and 4 before (time)
+NEMOTRON_LAYERS, NEMOTRON_F32_LAYERS = 2, 1
 
 
 def dim_row(row, D) -> dict:
@@ -3398,7 +3408,7 @@ def deepseek_phase(dev, add) -> dict:
                             32, 4096)
     add(counts, {"flash_prefill": len(prompts) * DEEPSEEK_LAYERS})
     total = dict(counts)
-    # an f32 copy of these six layers would not fit beside them
+    # an f32 copy of these layers would not fit beside them
     single_turn_check(cfg, params, dev, prompts, out, 32, 4096, hold=False,
                       types=(torch.bfloat16,))
     c32, cut = first_layers(cfg, params, DEEPSEEK_F32_LAYERS)
@@ -3523,11 +3533,11 @@ def danube_phase(dev, add) -> dict:
     return total
 
 
-K4_LAYERS = 18     # (k4): qwen3-4b's first 18 of 36 layers (its time)
+K4_LAYERS = 9      # (k4): qwen3-4b's first 9 of 36 layers (its time)
 
 
 def qwen3_phase(dev, add) -> None:
-    """(k4) qwen3-4b at full width on 18 of its 36 layers (``qk_norm``,
+    """(k4) qwen3-4b at full width on 9 of its 36 layers (``qk_norm``,
     head dim 128 > d / heads) in f32 on both planes of trace (b), held
     to B = 1."""
     from repro_torch.configs import get_config
@@ -3858,11 +3868,27 @@ def train_launcher_phase() -> None:
         f"{' '.join(last)}; {time.perf_counter() - t0:.1f} s")
 
 
+def family_batch(cfg, B: int, S: int) -> dict:
+    """One batch of ``cfg``'s family from seed SEED: random tokens and
+    their shift as labels, the vlm's patches under a prefix of their
+    length, the encdec's frames."""
+    rng = np.random.default_rng(SEED)
+    toks = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    batch = {"tokens": toks, "labels": np.roll(toks, -1, axis=1)}
+    if cfg.frontend == "vision":
+        batch["patches"] = rng.standard_normal(
+            (B, cfg.frontend_len, cfg.d_model)).astype(np.float32)
+        batch["prefix_len"] = np.full((B,), cfg.frontend_len, np.int32)
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal(
+            (B, cfg.encoder.num_frames, cfg.d_model)).astype(np.float32)
+    return batch
+
+
 def train_families_phase(dev) -> list:
     """(l5) every other family at full width, 5 steps on one repeated
     batch, depth cut only where memory forces it: the loss falls, and
     every loss and grad norm is finite."""
-    import itertools
     from repro_torch.configs import get_config
     from repro_torch.training.train_loop import TrainConfig, build_train_step
     rows = []
@@ -3871,16 +3897,7 @@ def train_families_phase(dev) -> list:
         full = get_config(name)
         cfg = full if layers is None else full.replace(num_layers=layers)
         params, opt, state = train_setup(cfg, dev, full)
-        rng = np.random.default_rng(SEED)
-        toks = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
-        batch = {"tokens": toks, "labels": np.roll(toks, -1, axis=1)}
-        if cfg.frontend == "vision":
-            batch["patches"] = rng.standard_normal(
-                (B, cfg.frontend_len, cfg.d_model)).astype(np.float32)
-            batch["prefix_len"] = np.full((B,), cfg.frontend_len, np.int32)
-        if cfg.family == "encdec":
-            batch["frames"] = rng.standard_normal(
-                (B, cfg.encoder.num_frames, cfg.d_model)).astype(np.float32)
+        batch = family_batch(cfg, B, S)
         step = build_train_step(cfg, opt, TrainConfig(remat=remat))
         torch.cuda.reset_peak_memory_stats()
         n_params = sum(t.numel() for t in _leaves(params))
@@ -3941,6 +3958,16 @@ N2_LAYERS, N2_TWIN_LAYERS = 4, 1   # (n2): qwen2-1.5b's first layers
 N3_LAYERS, N3_B, N3_S = 2, 4, 256  # (n3): phi3.5-moe's first layers
 N_LOSS_TOL = 1e-2                  # bf16 mesh vs one device, relative
 N_TWIN_TOL = 1e-4                  # f32 mesh vs one device, relative
+# (n4): the other families at full width on 1x2, bf16: (name, layers or
+# None for whole, B, text S); paligemma at B 2 (its 256 patches make the
+# logits gathered over 'model' 384 positions a row)
+N4_RUNS = (("paligemma-3b", 2, 2, 128),
+           ("mamba2-1.3b", 4, 4, 128),
+           ("recurrentgemma-9b", 3, 4, 128),
+           ("whisper-tiny", None, 4, 128),
+           ("deepseek-v2-236b", 2, 4, 128))
+N4_STEPS = 2
+N2_COMPRESS_TOL = 0.02             # int8 mean vs the exact mean, of its max
 
 
 def slicewise_moe(D: int, M: int):
@@ -3970,17 +3997,17 @@ def slicewise_moe(D: int, M: int):
     return apply
 
 
-def n3_setup(dev, mesh=None):
-    """(n3)'s model: phi3.5-moe at full width on its first N3_LAYERS
-    layers, bf16, the optimizer the whole config selects (Adafactor),
-    from seed SEED; on a mesh this rank's blocks. Returns (cfg, opt,
-    rules, params, state)."""
+def family_setup(name: str, layers, dev, mesh=None):
+    """``name`` at full width on its first ``layers`` layers (None:
+    whole), bf16, the optimizer the whole config selects, from seed
+    SEED; on a mesh this rank's blocks. Returns (cfg, opt, rules,
+    params, state)."""
     from repro_torch.configs import get_config
     from repro_torch.distributed.sharding import ShardingRules, tree_local
     from repro_torch.models.model import init_params, param_shapes
     from repro_torch.training import optimizer as O
-    full = get_config("phi3.5-moe-42b-a6.6b")
-    cfg = full.replace(num_layers=N3_LAYERS)
+    full = get_config(name)
+    cfg = full if layers is None else full.replace(num_layers=layers)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
                          dev)
     opt, rules, specs = O.select_optimizer(full), None, None
@@ -4040,6 +4067,9 @@ def held_digest(params, specs) -> dict:
         if isinstance(t, dict):
             for k in t:
                 walk(t[k], s[k], f"{path}/{k}")
+        elif isinstance(t, list):
+            for i, (u, z) in enumerate(zip(t, s)):
+                walk(u, z, f"{path}/{i}")
         elif not spec_axes(s):
             b = t.detach().contiguous().view(torch.uint8).cpu().numpy()
             out[path] = hashlib.sha1(b.tobytes()).hexdigest()
@@ -4113,7 +4143,8 @@ def n_rank_1x2(mesh, ckpt: str) -> dict:
     free_device()
     # (n3): phi3.5-moe, 8 of 16 experts a rank
     torch.cuda.reset_peak_memory_stats()
-    cfg, opt, rules, params, state = n3_setup(mesh.device, mesh)
+    cfg, opt, rules, params, state = family_setup(
+        "phi3.5-moe-42b-a6.6b", N3_LAYERS, mesh.device, mesh)
     specs = rules.params(param_shapes(cfg))
     params, state, losses, norms, ms = mesh_steps(
         mesh, cfg, opt, rules, params, state, n3_batches(cfg), 2)
@@ -4124,20 +4155,44 @@ def n_rank_1x2(mesh, ckpt: str) -> dict:
                      held=held_digest(params, specs))
     del params, state
     free_device()
+    # (n4): the vlm, ssm, hybrid, encdec and mla families
+    out["n4"] = {}
+    for name, layers, B, S in N4_RUNS:
+        torch.cuda.reset_peak_memory_stats()
+        cfg, opt, rules, params, state = family_setup(name, layers,
+                                                      mesh.device, mesh)
+        specs = rules.params(param_shapes(cfg))
+        split = sum(t.shape != f.shape for t, f in zip(
+            _leaves(params), _leaves(param_shapes(cfg))))
+        params, state, losses, norms, ms = mesh_steps(
+            mesh, cfg, opt, rules, params, state,
+            itertools.repeat(family_batch(cfg, B, S)), N4_STEPS)
+        out["n4"][name] = dict(losses=losses, norms=norms, ms=ms,
+                               peak=torch.cuda.max_memory_allocated(),
+                               split=split, leaves=len(_leaves(params)),
+                               held=held_digest(params, specs))
+        del params, state
+        free_device()
     out["counts"] = {n: w.launches for n, w in wrappers.items()}
     return out
 
 
 def n_rank_2x2(mesh, ref_path) -> dict:
     """(n2) on one rank of the 2x2 mesh with FSDP: qwen2-1.5b's first
-    N2_LAYERS layers in bf16, then the f32 twin on N2_TWIN_LAYERS held
-    to the single-device step's loss, grad norm and every gradient leaf
-    (made whole)."""
+    N2_LAYERS layers in bf16, their parameters saved from the mesh and
+    ``elastic_rescale``d onto a 1x4 view of the four ranks; then the f32
+    twin on N2_TWIN_LAYERS held to the single-device step's loss, grad
+    norm and every gradient leaf (made whole), and this rank's own
+    gradients of it (before their sum over 'data') reduced over 'data'
+    by ``compressed_psum``."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.compression import (compressed_psum,
+                                                     wire_bytes)
     from repro_torch.distributed.sharding import tree_full
     from repro_torch.training.data import synthetic_batches
     from repro_torch.training.optimizer import tree_map
     from repro_torch.training.train_loop import (TrainConfig, batch_to,
-                                                 mesh_step_grads)
+                                                 mesh_step_grads, step_grads)
     out = {"rank": mesh.rank}
     wrappers = kernel_counts()
     for w in wrappers.values():
@@ -4151,7 +4206,10 @@ def n_rank_2x2(mesh, ref_path) -> dict:
     out["bf16"] = dict(losses=losses, norms=norms, ms=ms,
                        peak=torch.cuda.max_memory_allocated(),
                        held=held_digest(params, specs))
-    del params, state
+    del state
+    out["rescale"] = n2_rescale(mesh, rules, params, len(losses), str(
+        Path(ref_path).with_name("n2_ckpt")))
+    del params
     free_device()
     cfg, opt, rules, specs, params, state = twin_setup(
         mesh.device, N2_TWIN_LAYERS, torch.float32, mesh, fsdp=True)
@@ -4160,6 +4218,25 @@ def n_rank_2x2(mesh, ref_path) -> dict:
         remat=False), mesh, rules, specs)
     grads = tree_full(grads, specs, mesh)
     out["f32"] = dict(loss=loss.item())
+    # compressed_psum of this rank's own gradients over 'data', against
+    # their exact mean
+    _, own = step_grads(cfg, params, batch, TrainConfig(remat=False), mesh,
+                        rules)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mean, errs = compressed_psum(own, mesh, "data")
+    torch.cuda.synchronize()
+    c_ms = (time.perf_counter() - t0) * 1e3
+    exact = tree_map(lambda g: C.all_reduce(g.float().clone(), mesh, "data")
+                     / mesh.data, own)
+    worst = max(((m - e).abs().max() / e.abs().max().clamp_min(1e-30)).item()
+                for m, e in zip(_leaves(mean), _leaves(exact)))
+    out["compress"] = dict(
+        worst=worst, ms=c_ms, wire=wire_bytes(own),
+        f32_bytes=4 * sum(g.numel() for g in _leaves(own)),
+        finite=all(bool(torch.isfinite(t).all())
+                   for t in _leaves(mean) + _leaves(errs)))
+    del own, mean, errs, exact
     if mesh.rank == 0:
         ref = torch.load(ref_path)
         errs = {}
@@ -4172,6 +4249,43 @@ def n_rank_2x2(mesh, ref_path) -> dict:
     free_device()
     out["counts"] = {n: w.launches for n, w in wrappers.items()}
     return out
+
+
+def n2_rescale(mesh, rules, params, step: int, ckpt: str) -> dict:
+    """(n2)'s parameters saved from the 2x2 mesh (its blocks gathered to
+    rank 0, which writes the full leaves), then ``elastic_rescale``d
+    onto a 1x4 view of the same ranks (its 'model' group the world):
+    each restored block bit-equal to the view's ``local_block`` of the
+    saved leaf."""
+    import torch.distributed as dist
+    from repro_torch.distributed.fault_tolerance import elastic_rescale
+    from repro_torch.distributed.sharding import ShardingRules, tree_local
+    from repro_torch.models.model import param_shapes
+    from repro_torch.training.checkpoint import (restore_checkpoint,
+                                                 save_checkpoint)
+    cfg = rules.cfg
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint(ckpt, step, params, shardings=(rules, mesh))
+    t1 = time.perf_counter()
+    view = dataclasses.replace(mesh, data=1, model=mesh.world,
+                               model_group=dist.group.WORLD, data_group=None)
+    tree, step, view = elastic_rescale(
+        ckpt, lambda: view, lambda m: ShardingRules(cfg, m),
+        device=mesh.device)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    full, _ = restore_checkpoint(ckpt)
+    want = tree_local(full["params"], ShardingRules(cfg, view).params(
+        param_shapes(cfg)), view)
+    got, want = _leaves(tree["params"]), _leaves(want)
+    return dict(save_s=t1 - t0, rescale_s=t2 - t1, step=step,
+                model=view.model, leaves=len(got),
+                moved=sum(a.shape != b.shape
+                          for a, b in zip(got, _leaves(params))),
+                same=len(got) == len(want) and all(
+                    a.dtype == b.dtype and torch.equal(a.cpu(), b)
+                    for a, b in zip(got, want)))
 
 
 def _paths(tree, prefix=""):
@@ -4194,27 +4308,47 @@ def mesh_train_phase(dev) -> list:
                                                  build_train_step,
                                                  loss_and_grads)
     t0 = time.perf_counter()
-    # the single-device references
+    # the single-device references; each peak counts what the reference
+    # allocates past what this process already holds (a rank starts from
+    # nothing)
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     run = LT.prepare(N1_ARGS, None)
     one = dict(zip(("params", "state", "losses", "norms", "ms"), timed_steps(
         build_train_step(run["cfg"], run["opt"], TrainConfig(remat=False)),
         run["params"], run["state"], run["data"], N1_ARGS["steps"])))
-    one["peak"] = torch.cuda.max_memory_allocated()
+    one["peak"] = torch.cuda.max_memory_allocated() - base
     del run, one["params"], one["state"]
     free_device()
     patched = moe_mod.moe_apply
     moe_mod.moe_apply = slicewise_moe(1, 2)
     try:
-        cfg, opt, _, params, state = n3_setup(dev)
+        cfg, opt, _, params, state = family_setup(
+            "phi3.5-moe-42b-a6.6b", N3_LAYERS, dev)
         three = dict(zip(("params", "state", "losses", "norms", "ms"),
                          timed_steps(build_train_step(cfg, opt, TrainConfig(
                              remat=False)), params, state, n3_batches(cfg),
                              2)))
+        del params, state, three["params"], three["state"]
+        free_device()
+        # (n4)'s references, the mla family's moe layer the slice-wise
+        # moe of the 1x2 mesh
+        four = {}
+        for name, layers, B, S in N4_RUNS:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            cfg, opt, _, params, state = family_setup(name, layers, dev)
+            four[name] = dict(zip(("params", "state", "losses", "norms",
+                                   "ms"), timed_steps(
+                build_train_step(cfg, opt, TrainConfig(remat=False)),
+                params, state, itertools.repeat(family_batch(cfg, B, S)),
+                N4_STEPS)))
+            four[name]["peak"] = torch.cuda.max_memory_allocated() - base
+            four[name]["params_n"] = sum(t.numel() for t in _leaves(params))
+            del params, state, four[name]["params"], four[name]["state"]
+            free_device()
     finally:
         moe_mod.moe_apply = patched
-    del params, state, three["params"], three["state"]
-    free_device()
     cfg, _, _, _, params, _ = twin_setup(dev, N2_TWIN_LAYERS, torch.float32)
     loss, _, grads = loss_and_grads(cfg, params, batch_to(twin_batch(cfg),
                                                           dev))
@@ -4277,6 +4411,32 @@ def mesh_train_phase(dev) -> list:
               f"(n3) rank {r['rank']}: experts {n3['experts']}, rel {rel}")
     check(r12[0]["n3"]["held"] == r12[1]["n3"]["held"],
           "(n3) replicated leaves differ")
+    # (n4)
+    for name, layers, B, S in N4_RUNS:
+        one = four[name]
+        what = "whole" if layers is None else f"{layers} layers"
+        for r in r12:
+            n4 = r["n4"][name]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(n4["losses"],
+                                                          one["losses"]))
+            log(f"[mesh-train] (n4) {name} ({what}, "
+                f"{one['params_n'] / 1e9:.3f} B parameters, bf16), B {B} x "
+                f"S {S}, 1x2 rank {r['rank']} ({n4['split']} of "
+                f"{n4['leaves']} leaves split): loss {n4['losses']} (one "
+                f"device {one['losses']}, worst rel {rel:.2e}), grad norm "
+                f"{n4['norms']} (one device {one['norms']}); ms a step "
+                f"{[round(v, 2) for v in n4['ms']]} (one device "
+                f"{[round(v, 2) for v in one['ms']]}); peak "
+                f"{n4['peak'] / 2 ** 30:.2f} GiB (one device "
+                f"{one['peak'] / 2 ** 30:.2f}); {card_line}")
+            check(len(n4["losses"]) == N4_STEPS and rel <= N_LOSS_TOL
+                  and all(map(math.isfinite, n4["losses"] + n4["norms"]))
+                  and n4["split"] > 0,
+                  f"(n4) {name} rank {r['rank']}: losses {n4['losses']} vs "
+                  f"{one['losses']} ({rel}), split {n4['split']}")
+        check(r12[0]["n4"][name]["held"] == r12[1]["n4"][name]["held"]
+              and r12[0]["n4"][name]["held"],
+              f"(n4) {name}: replicated leaves differ")
     # (n2)
     held = [r["bf16"]["held"] for r in r22]
     for r in r22:
@@ -4298,6 +4458,21 @@ def mesh_train_phase(dev) -> list:
           "(n2) ranks' losses differ")
     check(rel <= N_TWIN_TOL and f32["worst"][0] <= N_TWIN_TOL,
           f"(n2) f32 twin: loss rel {rel}, gradient {f32['worst']}")
+    for r in r22:
+        c, e = r["compress"], r["rescale"]
+        log(f"[mesh-train] (n2) rank {r['rank']}: compressed_psum over "
+            f"'data' of its own f32 twin gradients, worst leaf "
+            f"{c['worst']:.2e} of the exact mean's max (<= "
+            f"{N2_COMPRESS_TOL}), wire_bytes {c['wire']} int8 against "
+            f"{c['f32_bytes']} of f32, {c['ms']:.1f} ms; bf16 parameters "
+            f"saved from 2x2 in {e['save_s']:.1f} s, elastic_rescale onto "
+            f"1x{e['model']} in {e['rescale_s']:.1f} s ({e['moved']} of "
+            f"{e['leaves']} blocks reshaped), bit-equal {e['same']}")
+        check(c["finite"] and c["worst"] <= N2_COMPRESS_TOL
+              and 4 * c["wire"] == c["f32_bytes"],
+              f"(n2) rank {r['rank']} compressed_psum: {c}")
+        check(e["same"] and e["step"] == 2 and e["model"] == 4
+              and e["moved"] > 0, f"(n2) rank {r['rank']} rescale: {e}")
     log(f"[mesh-train] phase (n): {time.perf_counter() - t0:.1f} s")
     return [r["counts"] for r in r12 + r22]
 

@@ -22,6 +22,12 @@ ones follow Megatron's pairing:
 - ``mean_over_data``: forward the mean over 'data', backward identity
   (each data rank's share of the loss is its own term; the train step
   sums them).
+- ``sum_over_model``: forward a sum over 'model', backward a sum over
+  'model' too. A statistic summed over the parts of a sharded dim (the
+  mamba2 mixer's sum of squares over ``d_in``) feeds every part's own
+  work, so each rank's gradient of it is a partial sum; an identity
+  backward (``reduce_from_model``'s) would give each rank only its own
+  part's share of the gradient: the loss right, the gradients wrong.
 
 ``torch.distributed.nn.functional.all_reduce`` is not used: its
 backward is another all-reduce, which is wrong for
@@ -45,10 +51,11 @@ import torch.distributed as dist
 # ======================================================================
 # the plain collectives (no autograd)
 # ======================================================================
-def all_reduce(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
-    """The sum of ``t`` over ``axis``, in place."""
+def all_reduce(t: torch.Tensor, mesh, axis: str,
+               op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """The sum (or ``op``) of ``t`` over ``axis``, in place."""
     if mesh.shape[axis] > 1:
-        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.group(axis))
+        dist.all_reduce(t, op=op, group=mesh.group(axis))
     return t
 
 
@@ -161,6 +168,17 @@ class _AllToAllModel(torch.autograd.Function):
                 None, None, None)
 
 
+class _SumOverModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return all_reduce(x.contiguous().clone(), mesh, "model")
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.mesh, "model"), None
+
+
 class _MeanOverData(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh):
@@ -177,6 +195,10 @@ def copy_to_model(x, mesh):
 
 def reduce_from_model(x, mesh):
     return x if mesh.model == 1 else _ReduceFromModel.apply(x, mesh)
+
+
+def sum_over_model(x, mesh):
+    return x if mesh.model == 1 else _SumOverModel.apply(x, mesh)
 
 
 def gather_from_model(x, dim: int, mesh):

@@ -3,15 +3,15 @@
 - ``run_resilient``: the checkpoint/restart supervisor of training — a
   (simulated or real) failure restarts training from the last atomic
   checkpoint.
+- ``elastic_rescale``: the newest checkpoint re-placed on a rebuilt
+  (resized) mesh, each rank reading its own blocks of the full leaves
+  (``restore_checkpoint(shardings=)``); the optimizer state follows
+  the parameters' specs, and the next step's batch is cut by the new
+  mesh's rules.
 - ``StragglerMitigator``: per-round deadline tracking for the serving
   engines — a round exceeding ``deadline_factor`` x the rolling median
   marks the source straggling; the fleet router drains a replica that
   keeps straggling and lifts the drain once it recovers.
-
-A checkpoint saved on a mesh restores onto one device or a mesh of the
-same rules (``training/checkpoint.py``); the reference module's
-``elastic_rescale`` (re-place checkpointed state on a resized mesh) is
-not ported (ROADMAP.md queue 1 item 7b-ii).
 """
 from __future__ import annotations
 
@@ -19,6 +19,8 @@ from dataclasses import dataclass, field
 from typing import Callable, List, Optional
 
 import numpy as np
+
+from repro_torch.training.checkpoint import restore_checkpoint
 
 
 def run_resilient(train_once: Callable[[int], int], *, max_restarts: int = 3,
@@ -40,6 +42,24 @@ def run_resilient(train_once: Callable[[int], int], *, max_restarts: int = 3,
                 start = on_failure(e, restarts)
             if restarts > max_restarts:
                 raise
+
+
+def elastic_rescale(ckpt_dir: str, make_mesh: Callable, make_shardings:
+                    Callable, *, device=None):
+    """Restore the newest checkpoint under ``ckpt_dir`` onto the mesh
+    ``make_mesh()`` returns for this rank (every rank of it calls this):
+    each leaf this rank's block under ``make_shardings(mesh)``'s rules
+    (a ``ShardingRules``), on ``device`` where given. Returns (tree,
+    step, mesh).
+
+    The reference's ``make_shardings(mesh, tree)`` returns a tree of
+    ``NamedSharding``s for ``device_put``; here the rules alone say
+    which block of each full leaf a rank holds, and the checkpoint's
+    files are mapped, so no rank reads a whole leaf it does not keep."""
+    mesh = make_mesh()
+    tree, step = restore_checkpoint(ckpt_dir, device=device,
+                                    shardings=(make_shardings(mesh), mesh))
+    return tree, step, mesh
 
 
 @dataclass

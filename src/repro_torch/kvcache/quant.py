@@ -1,6 +1,11 @@
-"""The KV wire codec of the offload path (DESIGN.md §14).
+"""The shared int8 block quantizer: the KV wire codec of the offload
+path (DESIGN.md §14) and the quantization core of the gradient
+all-reduce.
 
-The paged KV offload path quantizes page payloads on the host before
+One scheme, two call sites: ``distributed/compression.py`` quantizes
+gradient blocks on the device for the int8 all-reduce with
+``_pad_blocks`` and ``block_scale`` from here, so the two tiers cannot
+drift. The paged KV offload path quantizes page payloads on the host before
 they enter the DRAM tier: ``KVWireCodec`` encodes a page's
 ``[2, L, page, Hkv, hd]`` host copy (a CPU tensor in the store's dtype,
 bf16 included) to ``(int8 payload, fp32 block scales)`` at offload time
@@ -58,13 +63,27 @@ class QuantizedPage:
         return self.q.nbytes + self.scales.nbytes
 
 
+def _pad_blocks(flat: torch.Tensor):
+    """A flat tensor padded with zeros to a BLOCK multiple, as [nb,
+    BLOCK]; returns (blocks, pad). Zeros never raise a block's max, and
+    decoders cut them off by the original size."""
+    pad = (-flat.numel()) % BLOCK
+    return F.pad(flat, (0, pad)).reshape(-1, BLOCK), pad
+
+
+def block_scale(maxabs: torch.Tensor, eps: float = EPS) -> torch.Tensor:
+    """Each block's scale from its max magnitude: the epsilon guards the
+    max (an all-zero block), not the quotient."""
+    return maxabs.clamp(min=eps) / 127.0
+
+
 def encode_page(host: torch.Tensor, eps: float = EPS) -> QuantizedPage:
     """int8-encode a host tensor with BLOCK-granular fp32 scales. The
     result owns fresh tensors: ``host`` may be a view into a staging
     buffer that is reused."""
-    flat = host.detach().to("cpu", torch.float32).reshape(-1)
-    blocks = F.pad(flat, (0, (-flat.numel()) % BLOCK)).reshape(-1, BLOCK)
-    scales = blocks.abs().amax(dim=1).clamp(min=eps) / 127.0
+    blocks, _ = _pad_blocks(host.detach().to("cpu", torch.float32)
+                            .reshape(-1))
+    scales = block_scale(blocks.abs().amax(dim=1), eps)
     q = torch.round(blocks / scales[:, None]).clamp(-127, 127) \
         .to(torch.int8)
     return QuantizedPage(q=q, scales=scales, shape=tuple(host.shape),

@@ -4,7 +4,7 @@ The JAX package's ``launch/train.py`` on the port: the reference's
 flags plus ``--device`` (default ``cuda``; ``cpu`` for the reduced
 configs here). ``--mesh DxM`` trains over a ('data', 'model') mesh of
 D * M rank processes started from this one (``launch/mesh.py::spawn``;
-ranks that share a card talk gloo), the dense and moe families;
+ranks that share a card talk gloo), every family;
 ``--distributed`` takes the ranks from ``torchrun``'s environment
 instead (one process a rank, ``init_method="env://"``) and needs
 ``--mesh`` with D * M ranks. Rank 0 prints the losses.

@@ -36,10 +36,17 @@ def embed_init(generator, shape, dtype, device):
 
 
 # ----------------------------------------------------------------- norms
-def rms_norm(x, weight, eps: float = 1e-6):
+def rms_norm(x, weight, eps: float = 1e-6, *, mesh=None):
+    """``mesh``: x's last dim (and ``weight``) is this rank's part of a
+    dim sharded over 'model'; the mean of squares is the whole dim's,
+    its sum taken over 'model' both ways (``sum_over_model``)."""
     dt = x.dtype
     x = x.float()
-    var = x.square().mean(dim=-1, keepdim=True)
+    if mesh is None:
+        var = x.square().mean(dim=-1, keepdim=True)
+    else:
+        var = C.sum_over_model(x.square().sum(dim=-1, keepdim=True),
+                               mesh) / (x.shape[-1] * mesh.model)
     x = x * torch.rsqrt(var + eps)
     return (x * (1.0 + weight.float())).to(dt)
 
@@ -119,7 +126,8 @@ def gqa_attention(q, k, v, mask, *, scale=None):
 
 
 # ----------------------------------------------------------------- mlp
-def mlp_apply(params, x, kind: str):
+def mlp_apply(params, x, kind: str, *, out_bias: bool = True):
+    """``out_bias`` False leaves the gelu kind's ``b_down`` out."""
     if kind in ("swiglu", "geglu"):
         gate = x @ params["w_gate"]
         act = F.silu(gate) if kind == "swiglu" \
@@ -130,7 +138,8 @@ def mlp_apply(params, x, kind: str):
         return h @ params["w_down"]
     if kind == "gelu":
         h = F.gelu(x @ params["w_up"] + params["b_up"], approximate="tanh")
-        return h @ params["w_down"] + params["b_down"]
+        y = h @ params["w_down"]
+        return y + params["b_down"] if out_bias else y
     raise ValueError(f"unknown mlp kind {kind!r}")
 
 
@@ -138,11 +147,11 @@ def mlp_tp(params, x, kind: str, mesh):
     """``mlp_apply`` with ``d_ff`` sharded over the mesh's 'model' axis
     (``w_gate``/``w_up``'s columns, ``w_down``'s rows, ``b_up``): x
     enters through ``copy_to_model`` and the partial outputs sum
-    through ``reduce_from_model``. The kinds without an output bias."""
-    if "b_down" in params:
-        raise ValueError(f"mlp_tp: the {kind!r} kind's output bias")
-    return C.reduce_from_model(
-        mlp_apply(params, C.copy_to_model(x, mesh), kind), mesh)
+    through ``reduce_from_model``. The gelu kind's output bias
+    ``b_down``, held whole, is added once, after the sum."""
+    y = C.reduce_from_model(mlp_apply(params, C.copy_to_model(x, mesh),
+                                      kind, out_bias=False), mesh)
+    return y + params["b_down"] if "b_down" in params else y
 
 
 def mlp_init(generator, d_model: int, d_ff: int, kind: str, dtype, device):

@@ -26,6 +26,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import collectives as C
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_prefill import flash_prefill
 from repro_torch.models.layers import NEG_INF, apply_rope, dense_init, \
@@ -59,11 +60,20 @@ def mla_init(generator, cfg, dtype, device):
     }
 
 
-def _project_q(params, cfg, x, positions):
-    """(q_nope [B, S, H, nope], q_rope [B, S, H, rope])."""
+def _to_heads(t, mesh):
+    """A latent every head reads, as it enters the head-sharded products
+    of a mesh: through ``copy_to_model``, since each rank's gradient of
+    it is its own heads' part (off a mesh: ``t``)."""
+    return t if mesh is None else C.copy_to_model(t, mesh)
+
+
+def _project_q(params, cfg, x, positions, mesh=None):
+    """(q_nope [B, S, H, nope], q_rope [B, S, H, rope]); over a ``mesh``
+    H is this rank's heads."""
     m = cfg.mla
     q_lat = rms_norm(x @ params["w_dq"], params["q_norm"], cfg.rms_eps)
-    q = torch.einsum("bsr,rhe->bshe", q_lat, params["w_uq"])
+    q = torch.einsum("bsr,rhe->bshe", _to_heads(q_lat, mesh),
+                     params["w_uq"])
     q_nope = q[..., :m.nope_head_dim]
     q_rope = apply_rope(q[..., m.nope_head_dim:], positions, cfg.rope_theta)
     return q_nope, q_rope
@@ -81,22 +91,29 @@ def _project_kv_latent(params, cfg, x, positions):
 
 
 def mla_forward(params, cfg, x, positions, *, plain: bool = False,
-                graph: str = "serve", mask=None):
+                graph: str = "serve", mask=None, mesh=None):
     """The prefill path (decompressed), causal (and windowed where the
     config has a window) over the S tokens of x [B, S, d]. Returns (out
     [B, S, d], (ckv, k_rope)). ``plain`` takes ``flash_prefill``'s plain
     version on any device. ``graph`` "train" attends as the reference's
     forward does, through ``gqa_attention`` under ``mask`` [B, S, S] at
     scale 1/sqrt(nope + rope), with V unpadded: the training graph, and
-    a prefill under the prefix-LM mask, which the kernel lacks."""
+    a prefill under the prefix-LM mask, which the kernel lacks.
+
+    ``mesh`` (the training graph over a mesh): ``w_uq``, ``w_uk``,
+    ``w_uv`` and ``wo`` are this rank's heads' blocks, the latents
+    (``q_lat``, ``ckv``, the shared ``k_rope``) enter their products
+    through ``copy_to_model``, and ``out`` is this rank's heads' part
+    of the sum, for the caller's ``reduce_from_model``."""
     m = cfg.mla
-    q_nope, q_rope = _project_q(params, cfg, x, positions)
+    q_nope, q_rope = _project_q(params, cfg, x, positions, mesh)
     ckv, k_rope = _project_kv_latent(params, cfg, x, positions)
-    k_nope = torch.einsum("bsr,rhe->bshe", ckv, params["w_uk"])
-    v = torch.einsum("bsr,rhe->bshe", ckv, params["w_uv"])
-    H = cfg.num_heads
+    ckv_h = _to_heads(ckv, mesh)
+    k_nope = torch.einsum("bsr,rhe->bshe", ckv_h, params["w_uk"])
+    v = torch.einsum("bsr,rhe->bshe", ckv_h, params["w_uv"])
+    H = q_nope.shape[2]
     qk_dim = m.nope_head_dim + m.rope_head_dim
-    k_rope_h = k_rope[:, :, None, :].expand(
+    k_rope_h = _to_heads(k_rope, mesh)[:, :, None, :].expand(
         k_rope.shape[:2] + (H, m.rope_head_dim))
     if graph == "train":
         out = gqa_attention(torch.cat([q_nope, q_rope], dim=-1),

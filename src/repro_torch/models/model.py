@@ -392,14 +392,17 @@ def forward(cfg, params, tokens, *, frontend_embeds=None, prefix_len=None,
     ``jax.checkpoint`` does; ``seq_spec`` (the reference's sharding of
     the residual stream) changes no value and is ignored.
 
-    ``mesh`` (a rank's ``launch/mesh.py`` mesh) runs the dense and moe
-    families (no mla) over it, on the blocks of ``params`` that
-    ``rules`` (default ``ShardingRules(cfg, mesh)``) give this rank,
-    with ``tokens`` this data rank's rows: ``_forward_mesh``."""
+    ``mesh`` (a rank's ``launch/mesh.py`` mesh) runs every family over
+    it, on the blocks of ``params`` that ``rules`` (default
+    ``ShardingRules(cfg, mesh)``) give this rank, with ``tokens``,
+    ``frontend_embeds``, ``prefix_len`` and ``enc_frames`` this data
+    rank's rows: ``_forward_mesh``."""
     _check_ported(cfg)
     if mesh is not None:
         return _forward_mesh(cfg, params, tokens, mesh,
-                             rules or ShardingRules(cfg, mesh), remat)
+                             rules or ShardingRules(cfg, mesh), remat,
+                             frontend_embeds=frontend_embeds,
+                             prefix_len=prefix_len, enc_frames=enc_frames)
     x = _embed(cfg, params, tokens)
     x = _frontend_concat(x, frontend_embeds)
     B, S, _ = x.shape
@@ -513,16 +516,6 @@ def loss_fn(cfg, params, batch, *, mesh=None, remat: bool = False,
 # ======================================================================
 # the training graph over a mesh
 # ======================================================================
-MESH_FAMILIES = ("dense", "moe")
-
-
-def check_mesh_family(cfg) -> None:
-    """The families the mesh path runs: dense, and moe without mla."""
-    if cfg.family not in MESH_FAMILIES or cfg.mla is not None:
-        what = "mla" if cfg.mla is not None else f"the {cfg.family} family"
-        raise _not_ported(f"training {what} over a mesh", "7b-ii")
-
-
 def _fsdp(tree, specs, mesh):
     """The leaves of a layer's tree that ``specs`` shard over 'data'
     (FSDP), gathered whole for the layer that uses them."""
@@ -545,24 +538,50 @@ def _sharded(spec, dim: int) -> bool:
     return "model" in spec_axes([spec[dim]])
 
 
-def _attn_mesh(cfg, lp, sp, x, positions, mask, mesh):
-    """A layer's attention half with ``wq`` sharded over heads (else the
-    whole attention on every rank, no collective): the normed input
-    enters through ``copy_to_model``, and so does every leaf the rank
-    holds whole (``wk``/``wv`` and their biases where the KV heads do
-    not divide 'model', the q/k norms), since each rank's gradient of
-    it is a partial sum; ``wo``'s output leaves through
+def _enter(tree, specs, mesh):
+    """The leaves of a model-parallel block that a rank holds whole,
+    through ``copy_to_model`` (each rank's gradient of one is its own
+    part's); the sharded ones as they are."""
+    return {n: t if "model" in spec_axes(specs[n]) else
+            C.copy_to_model(t, mesh) for n, t in tree.items()}
+
+
+def _split_check(ok: bool, what: str, mesh) -> None:
+    """A block whose leaves the rules shard over 'model' only in part
+    (one dim divides the axis, a related one does not) has no meshed
+    form."""
+    if not ok:
+        raise ValueError(f"{what} do not split over {mesh.model} 'model' "
+                         "ranks")
+
+
+def _attn_mesh(cfg, lp, sp, x, positions, mask, mesh, *, rope=True):
+    """A layer's attention half with its heads sharded over 'model'
+    (else the whole attention on every rank, no collective): the normed
+    input enters through ``copy_to_model``, and so does every leaf the
+    rank holds whole (``wk``/``wv`` and their biases where the KV heads
+    do not divide 'model', the q/k norms), since each rank's gradient of
+    it is a partial sum; the output leaves through
     ``reduce_from_model``. Replicated KV heads are cut to the ones of
-    this rank's query heads (global head // G)."""
+    this rank's query heads (global head // G). mla shards ``w_uq``,
+    ``w_uk``, ``w_uv`` and ``wo`` over heads: ``mla_forward(mesh=)``
+    enters its latents. ``rope`` False: the encoder's layers."""
     a, s = lp["attn"], sp["attn"]
     h = L.rms_norm(x, lp["ln1"], cfg.rms_eps)
+    if cfg.mla is not None:
+        if not _sharded(s["w_uq"], 1):
+            out, _ = mla_mod.mla_forward(a, cfg, h, positions,
+                                         graph="train", mask=mask)
+            return x + out
+        out, _ = mla_mod.mla_forward(a, cfg, h, positions, graph="train",
+                                     mask=mask, mesh=mesh)
+        return x + C.reduce_from_model(out, mesh)
     if not _sharded(s["wq"], 1):
-        q, k, v = L.attn_project_qkv(a, cfg, h, positions)
+        q, k, v = L.attn_project_qkv(a, cfg, h, positions, rope=rope)
         return x + L.attn_output(a, L.gqa_attention(q, k, v, mask))
-    a = {n: t if "model" in spec_axes(s[n]) else C.copy_to_model(t, mesh)
-         for n, t in a.items()}
+    a = _enter(a, s, mesh)
     q, k, v = L.attn_project_qkv(a, cfg, C.copy_to_model(h, mesh),
-                                 positions)
+                                 positions, rope=rope)
     if not _sharded(s["wk"], 1):
         hl = q.shape[2]
         kv = (mesh.idx * hl + torch.arange(hl, device=q.device)) \
@@ -570,6 +589,60 @@ def _attn_mesh(cfg, lp, sp, x, positions, mask, mesh):
         k, v = k[:, :, kv], v[:, :, kv]
     out = L.attn_output(a, L.gqa_attention(q, k, v, mask))
     return x + C.reduce_from_model(out, mesh)
+
+
+def _xattn_mesh(cfg, lp, sp, x, enc_out, xmask, mesh):
+    """A whisper decoder layer's cross-attention half, its heads (query
+    and KV alike) sharded over 'model' (else whole on every rank):
+    ``enc_out`` has entered through ``copy_to_model`` (the caller's,
+    once for every layer), the normed queries enter here, and the
+    output leaves through ``reduce_from_model``."""
+    a = lp["xattn"]
+    sharded = _sharded(sp["xattn"]["wq"], 1)
+    g = L.rms_norm(x, lp["ln_x"], cfg.rms_eps)
+    if sharded:
+        g = C.copy_to_model(g, mesh)
+    q = torch.einsum("bsd,dhe->bshe", g, a["wq"])
+    k = torch.einsum("bsd,dhe->bshe", enc_out, a["wk"])
+    v = torch.einsum("bsd,dhe->bshe", enc_out, a["wv"])
+    out = L.attn_output(a, L.gqa_attention(q, k, v, xmask))
+    return x + (C.reduce_from_model(out, mesh) if sharded else out)
+
+
+def _ssm_mesh(cfg, lp, sp, x, mesh):
+    """A mamba2 layer with ``d_in`` and the heads sharded over 'model'
+    (else whole on every rank): ``w_z``/``w_x``/``conv_x``/``norm`` by
+    ``d_in``, ``w_dt``/``A_log``/``D``/``dt_bias`` by heads; ``w_B``,
+    ``w_C`` and ``conv_bc`` held whole enter through ``copy_to_model``
+    with the normed input; ``out_proj``'s rows leave through
+    ``reduce_from_model``."""
+    m, s = lp["mixer"], sp["mixer"]
+    h = L.rms_norm(x, lp["ln1"], cfg.rms_eps)
+    if not _sharded(s["w_x"], 1):
+        y, _ = ssm_mod.mamba2_forward(m, cfg, h, graph="train")
+        return x + y
+    _split_check(_sharded(s["w_dt"], 1), "the mamba2 heads", mesh)
+    y, _ = ssm_mod.mamba2_forward(_enter(m, s, mesh), cfg,
+                                  C.copy_to_model(h, mesh), graph="train",
+                                  mesh=mesh)
+    return x + C.reduce_from_model(y, mesh)
+
+
+def _rglru_mesh(cfg, lp, sp, x, mesh):
+    """A Griffin recurrent block with its channels sharded over 'model'
+    (else whole on every rank): ``in_gate``/``in_rec`` column-parallel,
+    the conv, gates' biases and decay by channel, the block-diagonal
+    ``w_a``/``w_x`` by block (a rank's channels are its blocks'), the
+    scan local, ``out`` row-parallel through ``reduce_from_model``."""
+    r, s = lp["rec"], sp["rec"]
+    h = L.rms_norm(x, lp["ln1"], cfg.rms_eps)
+    if not _sharded(s["in_rec"], 1):
+        y, _ = rg.recurrent_block_forward(r, cfg, h, graph="train")
+        return x + y
+    _split_check(_sharded(s["w_a"], 0), "the RG-LRU gate blocks", mesh)
+    y, _ = rg.recurrent_block_forward(r, cfg, C.copy_to_model(h, mesh),
+                                      graph="train")
+    return x + C.reduce_from_model(y, mesh)
 
 
 def _mlp_mesh(cfg, lp, sp, x, mesh, kind):
@@ -624,33 +697,78 @@ def _logits_mesh(cfg, params, specs, x, mesh):
     return logits
 
 
-def _forward_mesh(cfg, params, tokens, mesh, rules, remat):
-    """``forward`` over a mesh, the dense and moe families: each leaf
-    this rank's block of it (``rules.params``), FSDP leaves gathered
-    over 'data' inside the layer that uses them (and, under ``remat``,
-    again in its recomputation), the collectives of
-    ``distributed/collectives.py`` where the reference's GSPMD puts
-    its own. Returns the full logits and the aux loss."""
-    check_mesh_family(cfg)
+def _encode_mesh(cfg, params, specs, frames, mesh):
+    """``encode``'s training graph over a mesh: the encoder's stacked
+    layers through the meshed attention (no rope, no mask) and MLP."""
+    enc, sp = params["encoder"], _unstack_specs(specs["encoder"]["layers"])
+    B, nf, d = frames.shape
+    dt = cfg.activation_dtype()
+    x = frames.to(dt) + L.sinusoidal_positions(nf, d, frames.device).to(dt)
+    positions = torch.arange(nf, dtype=torch.int32,
+                             device=x.device).expand(B, nf)
+    mask = torch.ones((B, nf, nf), dtype=torch.bool, device=x.device)
+    for lp in _unstack(enc["layers"]):
+        lp = _fsdp(lp, sp, mesh)
+        x = _attn_mesh(cfg, lp, sp, x, positions, mask, mesh, rope=False)
+        x, _ = _mlp_mesh(cfg, lp, sp, x, mesh, cfg.mlp_kind)
+    return L.rms_norm(x, enc["final_norm"], cfg.rms_eps)
+
+
+def _forward_mesh(cfg, params, tokens, mesh, rules, remat, *,
+                  frontend_embeds=None, prefix_len=None, enc_frames=None):
+    """``forward`` over a mesh, every family: each leaf this rank's
+    block of it (``rules.params``), FSDP leaves gathered over 'data'
+    inside the layer that uses them (and, under ``remat``, again in its
+    recomputation), the collectives of ``distributed/collectives.py``
+    where the reference's GSPMD puts its own. The vlm patches are
+    prepended under the prefix-LM mask, the hybrid's list of layers runs
+    as ``forward``'s (no remat), the encdec decoder attends over the
+    encoder's output. Returns the full logits and the aux loss."""
     specs = rules.params(param_shapes(cfg))
     x = _embed_mesh(cfg, params, specs, tokens, mesh)
+    x = _frontend_concat(x, frontend_embeds)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
     mask = L.attention_mask(positions, positions, causal=True,
-                            window=cfg.sliding_window)
+                            window=cfg.sliding_window, prefix_len=prefix_len)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    fam = cfg.family
+
+    if fam == "hybrid":
+        local_mask = L.attention_mask(positions, positions, causal=True,
+                                      window=cfg.rglru.local_window)
+        for lp, sp, kind in zip(params["layers"], specs["layers"],
+                                cfg.block_kinds()):
+            lp = _fsdp(lp, sp, mesh)
+            if kind == "rglru":
+                x = _rglru_mesh(cfg, lp, sp, x, mesh)
+            else:
+                x = _attn_mesh(cfg, lp, sp, x, positions, local_mask, mesh)
+            x, _ = _mlp_mesh(cfg, lp, sp, x, mesh, cfg.mlp_kind)
+        return _logits_mesh(cfg, params, specs, x, mesh), aux
+
+    sp = _unstack_specs(specs["layers"])
+    if fam == "encdec":
+        enc_out = _encode_mesh(cfg, params, specs, enc_frames, mesh)
+        if _sharded(sp["xattn"]["wq"], 1):
+            enc_out = C.copy_to_model(enc_out, mesh)
+        xmask = torch.ones((B, S, enc_out.shape[1]), dtype=torch.bool,
+                           device=x.device)
 
     def layer(h, lp, sp, kind):
         lp = _fsdp(lp, sp, mesh)
+        if fam == "ssm":
+            return _ssm_mesh(cfg, lp, sp, h, mesh), None
         h = _attn_mesh(cfg, lp, sp, h, positions, mask, mesh)
+        if fam == "encdec":
+            h = _xattn_mesh(cfg, lp, sp, h, enc_out, xmask, mesh)
         return _mlp_mesh(cfg, lp, sp, h, mesh, kind)
 
-    for lp, sp in zip(params.get("layers_pre", []),
+    for lp, sq in zip(params.get("layers_pre", []),
                       specs.get("layers_pre", [])):
         # the leading dense layers: outside the remat
-        x, _ = layer(x, lp, sp, cfg.mlp_kind)
-    sp = _unstack_specs(specs["layers"])
+        x, _ = layer(x, lp, sq, cfg.mlp_kind)
     for lp in _unstack(params["layers"]):
         if remat:
             x, a = checkpoint(layer, x, lp, sp, cfg.mlp_kind,

@@ -152,7 +152,7 @@ def _project(params, cfg, u, conv_x_cache, conv_bc_cache):
 
 
 def mamba2_forward(params, cfg, u, *, plain: bool = False,
-                   graph: str = "serve"):
+                   graph: str = "serve", mesh=None):
     """u [b, l, d] -> (y [b, l, d], (conv_x_c, conv_bc_c, ssm_state)),
     from empty caches and a zero state (prefill). The scan runs through
     the ``ssd_scan`` kernel on the card, with B and C per group in their
@@ -162,10 +162,16 @@ def mamba2_forward(params, cfg, u, *, plain: bool = False,
     ``graph`` "train" (the training graph, which autograd
     differentiates) scans as the reference's forward does: the same
     ``ssd_chunked`` on B and C repeated in f32; the kernel has no
-    backward."""
+    backward.
+
+    ``mesh`` (the training graph over a mesh): ``params`` are this
+    rank's blocks, ``d_in`` and the heads its part over 'model' (the
+    caller enters ``u`` and the leaves held whole through
+    ``copy_to_model``). Each head scans with its own group's B and C,
+    and the gated norm takes the whole ``d_in``'s mean of squares."""
     s = cfg.ssm
     b, l, d = u.shape
-    d_in = d * s.expand
+    d_in = params["w_x"].shape[1]
     nheads = d_in // s.head_dim
     z, x, B, C, dt, cxc, cbc = _project(params, cfg, u, None, None)
     x = x.reshape(b, l, nheads, s.head_dim)
@@ -184,10 +190,15 @@ def mamba2_forward(params, cfg, u, *, plain: bool = False,
     X = x.float() * dt[..., None]
     dA = dt * A
     if plain or graph == "train":
-        rep = nheads // s.num_groups
-        Y, ssm_state = ssd_chunked(
-            X, dA, Bg.repeat_interleave(rep, dim=2).float(),
-            Cg.repeat_interleave(rep, dim=2).float(), chunk)
+        # head h of the whole d_in reads group h // rep; a rank's heads
+        # are the whole's from h0 on
+        rep = d * s.expand // s.head_dim // s.num_groups
+        h0 = 0 if mesh is None else mesh.idx * nheads
+
+        def heads(t):
+            return t.repeat_interleave(rep, dim=2)[:, :, h0:h0 + nheads] \
+                .float()
+        Y, ssm_state = ssd_chunked(X, dA, heads(Bg), heads(Cg), chunk)
     else:
         # B = bc[..., :gn] is a strided view: the kernel reads it copied
         Y, ssm_state = ssd_scan(X.contiguous(), dA.contiguous(),
@@ -197,7 +208,7 @@ def mamba2_forward(params, cfg, u, *, plain: bool = False,
     x = x[:, :l]
     Y = Y + params["D"][:, None] * x.float()
     y = Y.reshape(b, l, d_in).to(u.dtype)
-    y = rms_norm(y * F.silu(z), params["norm"], cfg.rms_eps)
+    y = rms_norm(y * F.silu(z), params["norm"], cfg.rms_eps, mesh=mesh)
     return y @ params["out_proj"], (cxc, cbc, ssm_state)
 
 

@@ -24,8 +24,8 @@ joins), where they are laid into the full leaf that rank 0 alone holds
 and writes; a restore maps the full leaves' files and copies this
 rank's ``local_block`` of each. So a checkpoint saved on a mesh
 restores on one device, and one saved on one device restores on a
-mesh. Re-placing a checkpoint on a resized mesh
-(``elastic_rescale``) is not ported (ROADMAP.md queue 1 item 7b-ii).
+mesh, or on a mesh of another shape (``distributed/fault_tolerance.py::
+elastic_rescale``).
 """
 from __future__ import annotations
 

@@ -8,7 +8,7 @@ in their own types (bf16 parameters give bf16 gradients, as
 ``jax.grad`` does). Microbatches sum their gradients into f32 zeros and
 their losses into an f32 scalar, then divide both by their count.
 
-Over a mesh (the dense and moe families) each rank holds its blocks of
+Over a mesh (every family) each rank holds its blocks of
 the parameters and the optimizer state (``ShardingRules``), and every
 rank draws the same global batch. The step splits it into microbatches
 first and each microbatch over 'data' second, the reference's order
@@ -142,7 +142,6 @@ def mesh_step_grads(cfg, params, batch, tc: TrainConfig, mesh, rules,
 
 
 def _mesh_train_step(cfg, opt, tc, mesh, rules):
-    M.check_mesh_family(cfg)
     specs = rules.params(M.param_shapes(cfg))
 
     def train_step(params, opt_state, batch):

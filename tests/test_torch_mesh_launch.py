@@ -5,6 +5,7 @@
   the single-device launcher within 1e-5, and so does its ``--resume``
   from a checkpoint the mesh saved (full leaves: the same files one
   device writes);
+- the same for the ssm and hybrid families (``--steps 3``);
 - ``--distributed --mesh 1x2`` under ``torchrun`` (one process a rank,
   ``env://``) prints them too;
 - the argparse errors of ``--mesh`` and ``--distributed``.
@@ -45,6 +46,14 @@ def test_mesh_prints_single_device_losses_and_resumes(capsys, tmp_path):
                  "--resume", "--mesh", "1x2")
     assert "resumed from step 20" in one and "resumed from step 20" in mesh
     assert _losses(mesh) == pytest.approx(_losses(one), rel=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b"])
+def test_mesh_trains_other_families(capsys, arch):
+    argv = ["--arch", arch, "--steps", "3"]
+    one = _losses(_main(capsys, *argv))
+    mesh = _losses(_main(capsys, *argv, "--mesh", "1x2"))
+    assert len(mesh) == 2 and mesh == pytest.approx(one, rel=1e-5)  # 0, 2
 
 
 def test_distributed_under_torchrun(capsys):

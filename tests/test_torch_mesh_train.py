@@ -93,8 +93,8 @@ GRAD_TOL, PARAM_TOL = 1e-4, 1e-5
 BF16_GRAD_TOL = 2 ** -7       # the gradients rounded to bf16, twice
 
 
-def _jcfg(arch, moe=None):
-    cfg = j_reduced(j_get_config(arch))
+def _jcfg(arch, moe=None, **kw):
+    cfg = j_reduced(j_get_config(arch), **kw)
     if moe:
         cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, **moe))
     return cfg
@@ -111,13 +111,15 @@ def _flat(tree, prefix="") -> dict:
     return {prefix[:-1]: tree}
 
 
-def _weights(seed, arch):
-    """JAX's initial weights, every leaf moved off its init (norm scales
-    off zero) so that each enters the gradients."""
+def _weights(seed, arch, **kw):
+    """JAX's initial weights (``kw``: ``reduced``'s sizes), every leaf
+    moved off its init (norm scales off zero) so that each enters the
+    gradients."""
     rng = np.random.default_rng(seed)
     return jax.tree.map(
         lambda a: (np.asarray(a) + 0.1 * rng.standard_normal(a.shape))
-        .astype(a.dtype), j_init_params(_jcfg(arch), jax.random.PRNGKey(0)))
+        .astype(a.dtype), j_init_params(_jcfg(arch, **kw),
+                                        jax.random.PRNGKey(0)))
 
 
 def _batch(vocab, B, S, seed):
@@ -136,7 +138,7 @@ def _jax_step(case, params, batch, grads_of):
     moe cases): loss, mean gradients over the microbatches (kept in
     ``grads_of`` by arch and microbatch count: the same for the cases
     that differ in nothing else), new params and state."""
-    cfg = _jcfg(case["arch"], case.get("moe"))
+    cfg = _jcfg(case["arch"], case.get("moe"), **case.get("reduced", {}))
     jo, tc = jopt.OptConfig(**case["opt"]), jtl.TrainConfig(**case["tc"])
     with pytest.MonkeyPatch.context() as mp:
         if cfg.moe:
@@ -316,14 +318,18 @@ def test_rank_blocks_are_the_rules_shards(run, name):
     JAX's specs (so its bytes are the shards' bytes), and a leaf's
     blocks are bit-equal on every rank at the same place on the axes
     its spec names (a leaf held whole: on every rank)."""
-    ref, case = run["ref"][name], TRAIN[name]
+    check_rank_blocks(run["out"], run["ref"][name], TRAIN[name], name)
+
+
+def check_rank_blocks(outs, ref, case, name):
+    """``test_rank_blocks_are_the_rules_shards`` of the train case
+    ``name``: ``outs`` the ranks' results, ``ref`` JAX's step."""
     amesh = AbstractMesh((D, M), ("data", "model"))
     jr = JRules(ref["cfg"], amesh, fsdp=case["fsdp"])
     shapes = {"params": jax.eval_shape(lambda: ref["params"]),
               "state": ref["state"]}
     specs = {"params": jr.params(shapes["params"]),
              "state": jr.opt_state(shapes["state"])}
-    outs = run["out"]
     for part, key in (("params", "local_params"), ("state", "local_state")):
         sds, sh = _flat(shapes[part]), _flat(specs[part])
         for r, o in enumerate(outs):

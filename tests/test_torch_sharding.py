@@ -10,8 +10,7 @@ leaf of the parameters (the port's ``param_shapes``, meta tensors, the
 reference's ``launch/specs.py::param_shapes``), of the AdamW and
 Adafactor states built on them, and of the decode caches at two
 sizes, equals JAX's leaf for leaf and path for path; ``needs_fsdp``
-agrees. The families the mesh path does not run, and ``expert_tp``,
-raise naming their ROADMAP items.
+agrees. ``expert_tp`` raises naming its ROADMAP item.
 """
 import functools
 
@@ -30,7 +29,6 @@ from repro_torch.distributed import sharding as tsh
 from repro_torch.models import model as TM
 from repro_torch.models import moe as tmoe
 from repro_torch.training import optimizer as topt
-from repro_torch.training.train_loop import TrainConfig, build_train_step
 
 MESHES = {"1x2": {"data": 1, "model": 2}, "2x2": {"data": 2, "model": 2},
           "4x2": {"data": 4, "model": 2}, "2x4": {"data": 2, "model": 4},
@@ -135,21 +133,6 @@ def test_local_block_and_full_shape():
 
 
 # ----------------------------------------------------------- refusals
-@pytest.mark.parametrize("name", ["paligemma-3b", "mamba2-1.3b",
-                                  "recurrentgemma-9b", "whisper-tiny",
-                                  "deepseek-v2-236b"])
-def test_mesh_refuses_other_families(name):
-    """vlm, ssm, hybrid, encdec and the moe family with mla: the forward
-    and the train step over a mesh raise naming item 7b-ii, before any
-    collective."""
-    cfg = reduced(get_config(name))
-    mesh = tsh.MeshShape({"data": 1, "model": 2})
-    with pytest.raises(NotImplementedError, match="item 7b-ii"):
-        TM.forward(cfg, {}, torch.zeros(1, 4, dtype=torch.long), mesh=mesh)
-    with pytest.raises(NotImplementedError, match="item 7b-ii"):
-        build_train_step(cfg, topt.OptConfig(), TrainConfig(), mesh=mesh)
-
-
 def test_moe_apply_refuses_expert_tp():
     cfg = reduced(get_config("phi3.5-moe-42b-a6.6b"))
     with pytest.raises(NotImplementedError, match="item 7c"):

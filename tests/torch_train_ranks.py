@@ -27,10 +27,10 @@ from repro_torch.training.train_loop import TrainConfig, batch_to, \
     build_train_step, mesh_step_grads
 
 
-def case_config(arch: str, moe=None):
-    """The reduced config of ``arch``, its moe fields replaced by
-    ``moe`` (a dict) where given."""
-    cfg = reduced(get_config(arch))
+def case_config(arch: str, moe=None, **kw):
+    """The reduced config of ``arch`` (``kw``: ``reduced``'s sizes), its
+    moe fields replaced by ``moe`` (a dict) where given."""
+    cfg = reduced(get_config(arch), **kw)
     if moe:
         cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, **moe))
     return cfg
@@ -51,7 +51,8 @@ def train_case(mesh, case: dict) -> dict:
     """One train step of ``case`` from its full weights: the whole step's
     loss, the gradients and new parameters made whole, and this rank's
     blocks of the new parameters and state."""
-    cfg = case_config(case["arch"], case.get("moe"))
+    cfg = case_config(case["arch"], case.get("moe"),
+                      **case.get("reduced", {}))
     rules = ShardingRules(cfg, mesh, fsdp=case["fsdp"])
     specs = rules.params(TM.param_shapes(cfg))
     params = _local(TM.params_from_numpy(case["params"], "cpu"), specs, mesh)
