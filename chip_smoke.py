@@ -9,18 +9,19 @@ seed, each with the kernels' launch counts zeroed just before it and
 read just after:
 
 - the paged multi-turn engine (qwen2-1.5b, 28 layers, bf16) on both
-  planes: (a) the scripted demo, (b) a mixed prefill/decode trace;
+  planes: (a) the scripted demo, (b) a mixed prefill/decode trace (then
+  profiled on the first 4 layers);
 - (a') the scripted demo on the per-token plane, whose turns 0 take the
   dense prefill graft (``flash_prefill``);
 - (c) the single-turn ring-cache engine on qwen2-1.5b (``flash_prefill``)
   and (d) on mamba2-1.3b (48 layers, ``ssd_scan``), each against a B = 1
   greedy reference and a full-width prefill through the plain versions;
   (d) also profiles one prefill for the ``ssd_scan`` kernels' share;
-- (e) the paged engine's feature planes on qwen2-1.5b: (e1) eight
-  sessions sharing a 250-token system prompt on the prefix plane (a
-  copy-on-write of the shared tail page included) against the
-  ``prefix_cache=False`` twin, (e2) phase (b)'s trace with three-token
-  n-gram drafts against its K = 0 tokens, (e3) the int8 wire tier's
+- (e) the paged engine's feature planes on qwen2-1.5b: (e1) on its
+  first 4 layers, eight sessions sharing a 250-token system prompt on
+  the prefix plane (a copy-on-write of the shared tail page included)
+  against the ``prefix_cache=False`` twin, (e2) phase (b)'s trace with
+  three-token n-gram drafts against its K = 0 tokens, (e3) the int8 wire tier's
   quality gate and the quantizer's bound on real offloaded pages; the
   twins' streams must agree in f32, where only a fault can part them;
 - (f) the front end on qwen2-1.5b: (f1) the live asyncio gateway
@@ -56,10 +57,10 @@ read just after:
   the wire bytes those of the moved pages; (h2) the fleet twin in bf16
   with barge-ins, a drained replica and pools that evict: every plan
   done or cancelled as the decision log says, the drained replica
-  empty; (h3) the live fleet gateway (``run_fleet_workload``) serving 12
+  empty; (h3) the live fleet gateway (``run_fleet_workload``) serving 8
   interactive sessions on the wall clock at scale 1 with a drained
   replica's sessions live-migrating; (h4) the launcher's ``--replicas 3
-  --workload handoff`` (at full depth, the clock at scale 4);
+  --workload handoff`` (``--layers 4``, the clock at scale 16);
 - (h5) the replica fleet over a mesh on the same 4 layers: two
   replicas, each sharding its page store over one mesh of ranks that
   share the card (gloo through host memory), the leader running the
@@ -72,12 +73,12 @@ read just after:
   that evict: every plan done or cancelled as the decision log says,
   every replica (the drained one too) empty at the end, the streams
   logged against one device's; (h5c) the launcher's ``--engine live
-  --replicas 2 --mesh 1x2 --workload handoff`` (at full depth, two
-  sessions, the clock at scale 4), every turn served; the ranks' launch counts are summed into the kernels'
-  line;
+  --replicas 2 --mesh 1x2 --workload handoff`` (``--layers 4``, two
+  sessions, the clock at scale 16), every turn served; the ranks'
+  launch counts are summed into the kernels' line;
 - (i) the moe and vlm families: (i0) the three attention kernels at
   head dim 256 (paligemma-3b's round, MQA with 8 query heads) against
-  their plain versions; (i1) paligemma-3b whole (18 layers, bf16) on
+  their plain versions; (i1) paligemma-3b on 9 of 18 layers (bf16) on
   both planes of phase (b)'s trace, and its f32 twin on both planes and
   through the per-token plane's dense graft, held to the B = 1 greedy
   streams; (i2) phi3.5-moe at full width on 2 of its 32 layers (16
@@ -111,28 +112,28 @@ read just after:
   tokens, against its plain prefill, and its f32 twin on 2 layers held
   to B = 1; (k2) nemotron-4-340b at full width on its first 2 of 96
   layers on both planes of trace (b), and its f32 twin on 1 layer held
-  to B = 1; (k3) h2o-danube-1.8b whole on the single-turn engine,
-  prompts of 1171-5000 tokens on a 4096-slot ring, bf16 and f32 (f32
-  held to B = 1), against the plain versions; (k4) qwen3-4b at full
+  to B = 1; (k3) h2o-danube-1.8b on 12 of 24 layers on the single-turn
+  engine, prompts of 1171-5000 tokens on a 4096-slot ring, bf16 and f32
+  (f32 held to B = 1), against the plain versions; (k4) qwen3-4b at full
   width on 9 of its 36 layers in f32 on both planes of trace (b), held
   to B = 1;
-- (l) single-device training, no kernel on its path (each part's
-  counts must stay 0): (l0) qwen2-1.5b whole (28 layers, bf16, AdamW)
-  for 15 steps of 8 x 256 synthetic tokens, the loss falling, ms a
-  step, tokens/s and peak memory, one step profiled; (l1) its first 2
-  layers at full width in f32, the card's loss and every gradient leaf
-  against the CPU's, one AdamW update from the CPU's gradients on both,
-  and (outside the counts) ``forward``'s logits against the
+- (l) single-device training, no kernel on its path (each part's counts
+  must stay 0): (l0) qwen2-1.5b whole (28 layers, bf16, AdamW) for 15
+  steps of 8 x 256 synthetic tokens, the loss falling, ms a step,
+  tokens/s and peak memory, one step profiled; (l1) its first 2 layers
+  at full width in f32, the card's loss and every gradient leaf against
+  the CPU's, one AdamW update from the CPU's gradients on both, and
+  (outside the counts) ``forward``'s logits against the
   ``flash_prefill`` prefill's; (l2) microbatches 2 with remat against
-  one batch; (l3) on its first 4 layers, 10 steps straight against 5,
-  an ``async_save``, a simulated failure, ``run_resilient``'s restore
+  one batch; (l3) on its first 4 layers, 10 steps straight against 5, an
+  ``async_save``, a simulated failure, ``run_resilient``'s restore
   (bit-equal, bf16 leaves included) and 5 more; (l4) the launcher
-  (whole) with a checkpoint, then ``--resume``; (l5) every other family at full width for 5 steps
-  on one batch, the loss falling (deepseek-v2 on its dense and one moe
-  layer with Adafactor, recurrentgemma-9b on one rglru, rglru,
-  attention group; h2o-danube past its window with remat, paligemma
-  with 256 patches under the prefix-LM mask, mamba2, whisper over 1500
-  frames whole);
+  (whole) with a checkpoint, then ``--resume``; (l5) every other family
+  at full width for 5 steps on one batch, the loss falling (deepseek-v2
+  on its dense and one moe layer with Adafactor, recurrentgemma-9b on
+  one rglru, rglru, attention group; h2o-danube past its window with
+  remat, paligemma with 256 patches under the prefix-LM mask, mamba2,
+  whisper over 1500 frames whole);
 - (m) kernel autotune at qwen2-1.5b's live geometry (bf16, 8 slots,
   pages of 16, 40 a session): the cost model's launch cost and memory
   rate measured, the paged pair's ``span`` swept over the decode kind
@@ -147,15 +148,16 @@ read just after:
 - (n) training over a ('data', 'model') mesh of rank processes sharing
   the card over gloo, no kernel on its path (every rank's counts must
   stay 0), each single-device reference run first and freed: (n1)
-  qwen2-1.5b whole (bf16, AdamW) on 1x2 through the launcher's own
-  rank body (``launch/train.py::prepare``, then ``train_loop``), 3 steps
-  of 8 x 256 and a checkpoint at the last (saved from the mesh, full
-  leaves from rank 0), the losses held to the single-device launcher's,
-  each rank's peak memory under one device's, the leaves every rank
-  holds whole bit-equal; then ``--resume``'s restore onto the mesh,
-  every rank's blocks bit-equal to the ones it saved; (n2) its first 4 layers on
-  2x2 with FSDP in bf16, and an f32 twin on 1 layer whose loss and every
-  gradient leaf (made whole) are held to one device's at 1e-4; (n3)
+  qwen2-1.5b on its first 4 layers (bf16, AdamW) on 1x2 through the
+  launcher's own rank body (``launch/train.py::prepare``, then
+  ``train_loop``), 3 steps of 8 x 256 and a checkpoint at the last
+  (saved from the mesh, full leaves from rank 0), the losses held to the
+  single-device launcher's, each rank's peak memory under one device's,
+  the leaves every rank holds whole bit-equal; then ``--resume``'s
+  restore onto the mesh, every rank's blocks bit-equal to the ones it
+  saved; (n2) its first 4 layers on 2x2 with FSDP in bf16, and an f32
+  twin on 1 layer whose loss and every gradient leaf (made whole) are
+  held to one device's at 1e-4; (n3)
   phi3.5-moe at full width on 2 of 32 layers on 1x2 (8 of 16 experts a
   rank, Adafactor), held to one device's step with the slice-wise moe
   (``slicewise_moe``, the checker); (n4) in the same 1x2 ranks, the
@@ -168,6 +170,21 @@ read just after:
   'data' within 0.02 of the exact mean's max, and the bf16 parameters
   saved from the mesh and ``elastic_rescale``d onto a 1x4 view of the
   four ranks, bit-equal to its ``local_block`` of each saved leaf;
+- (o) serving over a mesh and the dry run: (o1) in (n1)'s 1x2 ranks,
+  qwen2-1.5b whole in bf16, ``prefill(mesh=)`` of B 2 x 1024 into a
+  2048-slot ring (each rank's heads through ``flash_prefill``, 28
+  launches a rank) then 8 ``decode_step(mesh=)`` calls, and its f32
+  twin on 2 layers, each held to one device's logits and greedy
+  tokens, the collective bytes each call records equal to the dry
+  run's for the same calls on a placeholder 1x2 mesh; (o2) in (n2)'s
+  2x2 ranks, phi3.5-moe on 2 of 32 layers in f32 with ``expert_tp``
+  held to one device's slice-wise moe; (o3) the dry run of (l0)'s
+  train step on meta tensors against the card's: its flops equal
+  ``FlopCounterMode`` on the card, its peak above the arguments within
+  25 % of the card's; (o4) the dry run of qwen2-1.5b x train_4k and
+  deepseek-v2-236b x decode_32k (``expert_tp``) on the 16 x 16
+  placeholder mesh, a process for each beside (l4), whose launcher
+  processes time nothing but their whole run;
 
 and checks what comes out. Every phase is checked; any failure exits
 non-zero. The last line of standard output is
@@ -179,11 +196,13 @@ when the package it tests is not beside it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -825,7 +844,7 @@ def engine_phase(dev) -> dict:
                for s in planes["fused"]["tokens"])
     log(f"[engine] (b) sessions with identical tokens on both planes: "
         f"{same}/8 (bf16: matmuls of other shapes round differently)")
-    profile_rounds(cfg, params, dev)
+    profile_rounds(*first_layers(cfg, params, CUT_LAYERS), dev)
     return dict(params=params, cfg=cfg, planes=planes, kw=kw,
                 histories=histories)
 
@@ -1003,9 +1022,11 @@ def device_us_by_kernel(prof, ranges=()) -> dict:
 
 def profile_rounds(cfg, params, dev) -> None:
     """Where a fused round's time goes: the same trace once more under
-    ``torch.profiler`` (its overhead stays out of the timings above).
-    Prints the device's busy share of the wall time and the kernels
-    that took the most device time."""
+    ``torch.profiler`` (its overhead stays out of the timings above), on
+    the first CUT_LAYERS layers (cut from all 28: the profiler's
+    processing of every layer's events took ~70 s). Prints the device's
+    busy share of the wall time and the kernels that took the most
+    device time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving.paged_engine import PagedRealtimeEngine
@@ -1024,7 +1045,8 @@ def profile_rounds(cfg, params, dev) -> None:
         log("[profile] the profiler saw no device activity: device busy "
             "share not measured")
         return
-    log(f"[profile] fused plane under the profiler: {rounds} rounds in "
+    log(f"[profile] fused plane under the profiler ({cfg.num_layers} "
+        f"layers): {rounds} rounds in "
         f"{wall_us / 1e3:.1f} ms wall; device busy {busy / 1e3:.1f} ms = "
         f"{100 * busy / wall_us:.1f}% of wall")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
@@ -1262,7 +1284,9 @@ def f32_twin(cfg, params):
 
 
 def prefix_phase(cfg, params, dev) -> None:
-    """(e1) the prefix plane against its ``prefix_cache=False`` twin."""
+    """(e1) the prefix plane against its ``prefix_cache=False`` twin (on
+    the first CUT_LAYERS layers, cut from all 28 for the script's
+    time)."""
     t0 = time.perf_counter()
     hist, eng, expect = prefix_trace(cfg, params, dev, True)
     pc = eng.prefix_cache
@@ -2143,9 +2167,10 @@ H1_TRACE = dict(kind="handoff", num_sessions=6, seed=SEED, p_barge_in=0.0,
 H2_TRACE = dict(kind="interactive", num_sessions=9, seed=SEED,
                 p_barge_in=0.3, arrival="poisson", rate_rps=1.0)
 H2_DRAIN, H2_PAGES = (0, 6), 18
-# (h3): (f1)'s trace and geometry on each replica, 12 sessions, replica 0
-# drained after 6 routes (its sessions live-migrate at their next turn)
-H3_TRACE = dict(LIVE_TRACE, sessions=12)
+# (h3): (f1)'s trace and geometry on each replica, 8 sessions (cut from
+# 12 for the script's time), replica 0 drained after 6 routes (its sessions
+# live-migrate at their next turn)
+H3_TRACE = dict(LIVE_TRACE, sessions=8)
 H3_DRAIN = (0, 6)
 
 
@@ -2344,7 +2369,7 @@ def fleet_drain_phase(cfg, params, dev) -> dict:
 
 def live_fleet_phase(cfg, params, dev, f1: dict) -> dict:
     """(h3) ``run_fleet_workload`` on the wall clock at scale 1: (f1)'s
-    interactive trace at 12 sessions over 3 replicas of (f1)'s geometry
+    interactive trace at 8 sessions over 3 replicas of (f1)'s geometry
     sharing the weights, replica 0 drained after 6 routes. Held to what
     the trace determines; each replica round's host time is read around
     ``run_round``, and each replica's first round beside its median (the
@@ -2423,15 +2448,17 @@ def live_fleet_phase(cfg, params, dev, f1: dict) -> dict:
 
 def launcher_fleet_phase() -> None:
     """(h4) the launcher's fleet on the card: ``--engine live --replicas
-    3 --workload handoff`` at qwen2-1.5b on three sessions, two of which
-    hand off to another replica, the clock at scale 4 (cut from 1: the
-    trace's wall time); it must print one row per replica and hand off
-    and migrate at least once."""
+    3 --workload handoff`` at qwen2-1.5b's full width on its first
+    CUT_LAYERS layers (cut from all 28) and three sessions, two of which
+    hand off to another replica, the clock at scale 16 (cut from 1, then
+    4: the trace's wall time); it must print one row per replica and
+    hand off and migrate at least once."""
     import os
     t0 = time.perf_counter()
     cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--engine",
            "live", "--replicas", str(FLEET), "--workload", "handoff",
-           "--sessions", "3", "--clock-scale", "4"]
+           "--sessions", "3", "--clock-scale", "16", "--layers",
+           str(CUT_LAYERS)]
     out = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
                          cwd=ROOT, env=dict(os.environ,
                                             PYTHONPATH=str(ROOT / "src")))
@@ -2621,18 +2648,19 @@ def mesh_fleet_checks(tag: str, what: str, got: dict, one: dict) -> None:
 
 def launcher_mesh_fleet_phase() -> None:
     """(h5c) the launcher's fleet over a mesh on the card: ``--engine
-    live --replicas 2 --mesh 1x2 --workload handoff`` at qwen2-1.5b (full
-    depth) on two sessions, the clock at scale 4 (cut from three
-    sessions at scale 1 for the script's time; two still hand off and
-    migrate once); every turn of the trace must be served, there must be
-    one row a replica, and a handoff and a migration."""
+    live --replicas 2 --mesh 1x2 --workload handoff`` at qwen2-1.5b's
+    full width on its first CUT_LAYERS layers (cut from all 28) and two
+    sessions, the clock at scale 16 (cut from three sessions at scale 1,
+    then scale 4, for the script's time; two still hand off and migrate
+    once); every turn of the trace must be served, there must be one row
+    a replica, and a handoff and a migration."""
     import os
     from repro_torch.serving.workload import WorkloadConfig, generate
     t0 = time.perf_counter()
     cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--engine",
            "live", "--replicas", str(H5_REPLICAS), "--mesh", "1x2",
-           "--workload", "handoff", "--sessions", "2", "--clock-scale", "4",
-           "--json"]
+           "--workload", "handoff", "--sessions", "2", "--clock-scale", "16",
+           "--layers", str(CUT_LAYERS), "--json"]
     out = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
                          cwd=ROOT, env=dict(os.environ,
                                             PYTHONPATH=str(ROOT / "src")))
@@ -2666,6 +2694,9 @@ def launcher_mesh_fleet_phase() -> None:
 # paligemma-3b's heads: 8 query heads on one KV head of 256, so a fused
 # round of 16 tokens has 128 rows (two row groups of the paged kernel)
 PALI_HEADS = dict(Hq=8, Hkv=1, D=256)
+# paligemma-3b's first 9 of 18 layers in (i1) (cut from all 18 for the
+# script's time on a slow host)
+I1_LAYERS = 9
 # phi3.5-moe at full width with its depth cut: 2 of its 32 layers (all
 # 32 are ~84 GB of bf16 weights, more than the card holds; 8, then 4,
 # before the script's time limit asked for more room)
@@ -2916,24 +2947,27 @@ def b1_agreement(tag, cfg, params, dev, planes) -> dict:
 
 
 def paligemma_phase(dev, add) -> None:
-    """(i1) paligemma-3b whole (18 layers, d 2048, MQA, head dim 256,
-    geglu, the embedding scale, vocab 257216) on both planes in bf16,
-    and its f32 twin on both planes and the per-token plane's dense
-    graft, held to the B = 1 greedy streams."""
+    """(i1) paligemma-3b at full width (d 2048, MQA, head dim 256, geglu,
+    the embedding scale, vocab 257216) on its first ``I1_LAYERS`` of 18
+    layers (cut from 18) on both planes in bf16, and its f32 twin
+    on both planes and the per-token plane's dense graft, held to the
+    B = 1 greedy streams."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_params
     t0 = time.perf_counter()
-    cfg = get_config("paligemma-3b")
+    full = get_config("paligemma-3b")
+    check(full.num_layers == 18, "paligemma-3b has not 18 layers")
+    cfg = full.replace(num_layers=I1_LAYERS)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
                          dev)
     torch.cuda.synchronize()
     n = sum(t.numel() for t in _leaves(params))
-    check(cfg.num_layers == 18 and cfg.d_model == 2048
+    check(cfg.d_model == 2048
           and cfg.resolved_head_dim == 256 and cfg.num_kv_heads == 1
           and params["embed"].shape == (257216, 2048)
           and params["embed"].dtype == torch.bfloat16,
           "not full-width paligemma-3b in bf16")
-    log(f"[family] {cfg.name}: {cfg.num_layers} layers d={cfg.d_model} "
+    log(f"[family] {cfg.name}: {cfg.num_layers} of 18 layers d={cfg.d_model} "
         f"heads {cfg.num_heads}/{cfg.num_kv_heads} hd "
         f"{cfg.resolved_head_dim}, {n / 1e9:.3f} B parameters in bf16, "
         f"random weights (seed {SEED}) in {time.perf_counter() - t0:.1f} s")
@@ -3327,6 +3361,9 @@ K0_FLASH_CASES = [
 # nemotron-4 ~680 GB); their f32 twins, held to B = 1, keep fewer
 DEEPSEEK_LAYERS, DEEPSEEK_F32_LAYERS = 4, 2   # 6 and 4 before (time)
 NEMOTRON_LAYERS, NEMOTRON_F32_LAYERS = 2, 1
+# h2o-danube-1.8b's first 12 of 24 layers in (k3) (cut from all 24 for
+# the script's time on a slow host)
+K3_LAYERS = 12
 
 
 def dim_row(row, D) -> dict:
@@ -3487,8 +3524,9 @@ def nemotron_phase(dev, add) -> dict:
 
 
 def danube_phase(dev, add) -> dict:
-    """(k3) h2o-danube-1.8b whole (24 layers, d 2560, 32 query heads on 8
-    KV heads of 80, a 4096-token window, untied) on the single-turn
+    """(k3) h2o-danube-1.8b at full width (d 2560, 32 query heads on 8 KV
+    heads of 80, a 4096-token window, untied) on its first
+    ``K3_LAYERS`` of 24 layers (cut from 24) on the single-turn
     engine: 4 slots at capacity 8192 (a ring of 4096), prompts of 5000,
     4097, 4096 and 1171 tokens, 32 tokens each, in bf16 (streams against
     B = 1 logged) and in its f32 twin (held to B = 1); the longest
@@ -3498,19 +3536,21 @@ def danube_phase(dev, add) -> dict:
     from repro_torch.models.model import cache_window, init_params
     free_device()
     t0 = time.perf_counter()
-    cfg = get_config("h2o-danube-1.8b")
+    full = get_config("h2o-danube-1.8b")
+    cfg = full.replace(num_layers=K3_LAYERS)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
                          dev)
     torch.cuda.synchronize()
     n = sum(t.numel() for t in _leaves(params))
-    check(cfg.num_layers == 24 and cfg.d_model == 2560
+    check(full.num_layers == 24 and cfg.d_model == 2560
           and cfg.resolved_head_dim == 80 and cfg.num_kv_heads == 8
           and cfg.sliding_window == 4096
           and cache_window(cfg, 8192) == 4096
-          and params["layers"]["attn"]["wq"].shape == (24, 2560, 32, 80)
+          and params["layers"]["attn"]["wq"].shape == (K3_LAYERS, 2560, 32,
+                                                       80)
           and params["embed"].dtype == torch.bfloat16,
           "not full-width h2o-danube-1.8b")
-    log(f"[family] {cfg.name}: {cfg.num_layers} layers d={cfg.d_model} "
+    log(f"[family] {cfg.name}: {cfg.num_layers} of 24 layers d={cfg.d_model} "
         f"heads {cfg.num_heads}/{cfg.num_kv_heads} hd "
         f"{cfg.resolved_head_dim}, window {cfg.sliding_window}, "
         f"{n / 1e9:.3f} B parameters in bf16, random weights (seed {SEED})")
@@ -3928,7 +3968,8 @@ def training_phase(dev) -> dict:
     """(l) single-device training, each part with the kernels' counts
     zeroed just before it and read just after: no kernel is on the
     training path, so every count must stay 0. (l1)'s prefill check
-    launches ``flash_prefill`` between the parts, outside the counts."""
+    launches ``flash_prefill`` between the parts, outside the counts.
+    (o4) runs on the host beside (l4)."""
     out = {}
     for tag, fn, args in (("(l0) qwen2-1.5b whole", train_whole_phase,
                            (dev,)),
@@ -3937,7 +3978,14 @@ def training_phase(dev) -> dict:
                           ("(l3) resume", train_resume_phase, (dev,)),
                           ("(l4) launcher", train_launcher_phase, ()),
                           ("(l5) families", train_families_phase, (dev,))):
-        out[tag[:4]], counts = main_path(f"training {tag}", fn, *args)
+        o4 = start_host_dryrun() if tag.startswith("(l4)") else None
+        try:
+            out[tag[:4]], counts = main_path(f"training {tag}", fn, *args)
+            if o4 is not None:
+                out["(o4)"] = host_dryrun_phase(*o4)
+        finally:
+            if o4 is not None:
+                stop_host_dryrun(*o4)
         check(not any(counts.values()),
               f"training {tag}: kernel launches {counts}, expected none")
         if tag.startswith("(l1)"):
@@ -3951,9 +3999,12 @@ def training_phase(dev) -> dict:
 # ======================================================================
 # (n) training over a mesh on the card
 # ======================================================================
-N1_ARGS = dict(arch="qwen2-1.5b", reduced=False, steps=3, batch=TRAIN_B,
-               seq=TRAIN_S, microbatches=1, ckpt_dir=None, resume=False,
-               device="cuda")
+# (n1): qwen2-1.5b's first 4 layers (cut from all 28, whose 21.5 GB
+# checkpoint took ~40 s to save from the mesh: (l4) saves and restores
+# the whole model's through the launcher on one device)
+N1_ARGS = dict(arch="qwen2-1.5b", reduced=False, layers=4, steps=3,
+               batch=TRAIN_B, seq=TRAIN_S, microbatches=1, ckpt_dir=None,
+               resume=False, device="cuda")
 N2_LAYERS, N2_TWIN_LAYERS = 4, 1   # (n2): qwen2-1.5b's first layers
 N3_LAYERS, N3_B, N3_S = 2, 4, 256  # (n3): phi3.5-moe's first layers
 N_LOSS_TOL = 1e-2                  # bf16 mesh vs one device, relative
@@ -4086,11 +4137,12 @@ def mesh_steps(mesh, cfg, opt, rules, params, state, batches, n):
     return timed_steps(step, params, state, batches, n)
 
 
-def n_rank_1x2(mesh, ckpt: str) -> dict:
-    """(n1) and (n3) on one rank of the 1x2 mesh, each with the kernels'
-    counts zeroed just before it and read just after. (n1) is the
-    launcher's rank body (``prepare``, then ``train_loop``) with a
-    checkpoint under ``ckpt`` at its last step, then ``--resume``'s
+def n_rank_1x2(mesh, ckpt: str, feeds: dict) -> dict:
+    """(n1), (n3) and (n4) on one rank of the 1x2 mesh, with the
+    kernels' counts zeroed just before them and read just after, then
+    (o1) with its own (``feeds``: the one device's greedy tokens). (n1)
+    is the launcher's rank body (``prepare``, then ``train_loop``) with
+    a checkpoint under ``ckpt`` at its last step, then ``--resume``'s
     ``prepare``, which restores it onto the mesh."""
     from repro_torch.launch import train as LT
     from repro_torch.models.model import param_shapes
@@ -4099,8 +4151,8 @@ def n_rank_1x2(mesh, ckpt: str) -> dict:
     wrappers = kernel_counts()
     for w in wrappers.values():
         w.launches = 0
-    # (n1): whole qwen2-1.5b, timed as one call; each step's start marked
-    # where train_loop draws its batch
+    # (n1): qwen2-1.5b's first layers, timed as one call; each step's
+    # start marked where train_loop draws its batch
     args = dict(N1_ARGS, ckpt_dir=ckpt)
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -4174,17 +4226,19 @@ def n_rank_1x2(mesh, ckpt: str) -> dict:
         del params, state
         free_device()
     out["counts"] = {n: w.launches for n, w in wrappers.items()}
+    out["o"] = serve_rank(mesh, {"o1": O1, "o1_twin": O1_TWIN}, feeds)
     return out
 
 
-def n_rank_2x2(mesh, ref_path) -> dict:
+def n_rank_2x2(mesh, ref_path, feeds: dict) -> dict:
     """(n2) on one rank of the 2x2 mesh with FSDP: qwen2-1.5b's first
     N2_LAYERS layers in bf16, their parameters saved from the mesh and
     ``elastic_rescale``d onto a 1x4 view of the four ranks; then the f32
     twin on N2_TWIN_LAYERS held to the single-device step's loss, grad
     norm and every gradient leaf (made whole), and this rank's own
     gradients of it (before their sum over 'data') reduced over 'data'
-    by ``compressed_psum``."""
+    by ``compressed_psum``. Then (o2), with its own counts (``feeds``:
+    the one device's greedy tokens)."""
     from repro_torch.distributed import collectives as C
     from repro_torch.distributed.compression import (compressed_psum,
                                                      wire_bytes)
@@ -4248,6 +4302,7 @@ def n_rank_2x2(mesh, ref_path) -> dict:
     del params, state, grads
     free_device()
     out["counts"] = {n: w.launches for n, w in wrappers.items()}
+    out["o"] = serve_rank(mesh, {"o2": O2}, feeds)
     return out
 
 
@@ -4295,10 +4350,12 @@ def _paths(tree, prefix=""):
     return prefix
 
 
-def mesh_train_phase(dev) -> list:
+def mesh_train_phase(dev) -> tuple:
     """(n) training over a mesh, the ranks sharing the card over gloo:
-    each single-device reference first, then freed; (n1) and (n3) in one
-    1x2 spawn, (n2) in a 2x2 one. Returns the ranks' kernel counts."""
+    each single-device reference first, then freed; (n1), (n3) and (n4)
+    in one 1x2 spawn, (n2) in a 2x2 one; (o1) and (o2), serving over a
+    mesh, run in those ranks after them. Returns the ranks' kernel
+    counts of training and of serving."""
     import shutil
     from repro_torch.launch import train as LT
     from repro_torch.launch.mesh import spawn
@@ -4358,12 +4415,19 @@ def mesh_train_phase(dev) -> list:
                 "grads": tree_map(lambda g: g.cpu(), grads)}, ref_path)
     del params, grads
     free_device()
-    log(f"[mesh-train] single-device references: {time.perf_counter() - t0:.1f} s")
+    # (o1)'s and (o2)'s one-device runs
+    t_o = time.perf_counter()
+    refs = {name: serve_reference(plan, dev) for name, plan in (
+        ("o1", O1), ("o1_twin", O1_TWIN), ("o2", O2))}
+    feeds = {name: ref["greedy"][:-1] for name, ref in refs.items()}
+    t_o = time.perf_counter() - t_o
+    log(f"[mesh-train] single-device references: "
+        f"{time.perf_counter() - t0:.1f} s ((o)'s {t_o:.1f} s)")
     try:
-        r12 = spawn("1x2", n_rank_1x2, str(tmp / "n1"), device="cuda",
-                    timeout_s=500)
-        r22 = spawn("2x2", n_rank_2x2, str(ref_path), device="cuda",
-                    timeout_s=400)
+        r12 = spawn("1x2", n_rank_1x2, str(tmp / "n1"), feeds, device="cuda",
+                    timeout_s=560)
+        r22 = spawn("2x2", n_rank_2x2, str(ref_path), feeds, device="cuda",
+                    timeout_s=460)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     card_line = card()
@@ -4372,7 +4436,8 @@ def mesh_train_phase(dev) -> list:
         n1 = r["n1"]
         rel = max(abs(a - b) / abs(b) for a, b in zip(n1["losses"],
                                                       one["losses"]))
-        log(f"[mesh-train] (n1) qwen2-1.5b whole, 1x2 rank {r['rank']}, "
+        log(f"[mesh-train] (n1) qwen2-1.5b {N1_ARGS['layers']} of 28 "
+            f"layers, 1x2 rank {r['rank']}, "
             f"the launcher's prepare + train_loop: loss {n1['losses']} (one "
             f"device {one['losses']}, worst rel {rel:.2e}); "
             f"{n1['call_s']:.1f} s for the call, ms a step "
@@ -4473,8 +4538,393 @@ def mesh_train_phase(dev) -> list:
               f"(n2) rank {r['rank']} compressed_psum: {c}")
         check(e["same"] and e["step"] == 2 and e["model"] == 4
               and e["moved"] > 0, f"(n2) rank {r['rank']} rescale: {e}")
-    log(f"[mesh-train] phase (n): {time.perf_counter() - t0:.1f} s")
-    return [r["counts"] for r in r12 + r22]
+    o_counts = mesh_serve_checks(refs, r12, r22)
+    log(f"[mesh-train] phase (n) with (o1), (o2): "
+        f"{time.perf_counter() - t0:.1f} s")
+    return [r["counts"] for r in r12 + r22], o_counts
+
+
+# ======================================================================
+# (o) serving over a mesh, and the dry run against the card
+# ======================================================================
+# (o1) in (n1)'s 1x2 ranks: qwen2-1.5b whole in bf16, a prefill of B 2 x
+# 1024 into a 2048-slot ring then 8 decode steps, and its f32 twin on
+# the first 2 layers; (o2) in (n2)'s 2x2 ranks: phi3.5-moe on its first
+# 2 of 32 layers in f32 with expert_tp, B 2 x 64 into 128 slots then 4
+# decode steps. Each is held to one device's run in this process (the
+# mesh decodes the one device's greedy tokens, so that every step's
+# logits compare)
+O1 = dict(arch="qwen2-1.5b", layers=None, dtype="bfloat16", B=2, S=1024,
+          capacity=2048, steps=8, expert_tp=False, seed=11)
+O1_TWIN = dict(O1, layers=2, dtype="float32")
+O2 = dict(arch="phi3.5-moe-42b-a6.6b", layers=2, dtype="float32", B=2,
+          S=64, capacity=128, steps=4, expert_tp=True, seed=12)
+O_BF16_TOL = 5e-2      # bf16 mesh vs one device, of a step's largest |logit|
+O_F32_TOL = 1e-4       # f32 mesh vs one device, the same
+O3_MEM_TOL = 0.25      # the dry run's peak above its arguments vs the card's
+# (o4) on the host: (arch, shape, expert_tp)
+O4_CELLS = (("qwen2-1.5b", "train_4k", False),
+            ("deepseek-v2-236b", "decode_32k", True))
+
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def plan_config(plan):
+    """``plan``'s config: its first ``layers`` (None: whole)."""
+    from repro_torch.configs import get_config
+    full = get_config(plan["arch"])
+    return full if plan["layers"] is None else \
+        full.replace(num_layers=plan["layers"])
+
+
+def serve_setup(plan, dev, mesh=None):
+    """(cfg, params, rules): ``plan``'s config on its first ``layers``
+    (None: whole) in its type, weights drawn in bf16 from seed SEED on
+    ``dev`` (then cast: the one device and the mesh hold the same
+    values); on a mesh this rank's blocks under ``ShardingRules(mode=
+    "decode", expert_tp=)``."""
+    from repro_torch.distributed.sharding import ShardingRules, tree_local
+    from repro_torch.models.model import init_params, param_shapes
+    from repro_torch.training.optimizer import tree_map
+    cfg = plan_config(plan)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+    cfg = cfg.replace(param_dtype=plan["dtype"], dtype=plan["dtype"])
+    rules = None
+    if mesh is not None:
+        rules = ShardingRules(cfg, mesh, mode="decode",
+                              expert_tp=plan["expert_tp"])
+        params = tree_map(lambda t: t.clone(), tree_local(
+            params, rules.params(param_shapes(cfg)), mesh))
+    params = cast_params(params, getattr(torch, plan["dtype"]))
+    return cfg, params, rules
+
+
+@contextlib.contextmanager
+def timed_collectives(dev, calls: list):
+    """Within the block, every collective the port issues (each is one
+    ``torch.distributed.all_reduce``) runs between two device syncs, and
+    appends its seconds to ``calls``: the host's wait on the collective
+    alone, not on the device work queued before it."""
+    import torch.distributed as dist
+    inner = dist.all_reduce
+
+    def timed(*a, **k):
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = inner(*a, **k)
+        _sync(dev)
+        calls.append(time.perf_counter() - t0)
+        return out
+    dist.all_reduce = timed
+    try:
+        yield calls
+    finally:
+        dist.all_reduce = inner
+
+
+def serve_steps(plan, cfg, params, dev, mesh=None, rules=None, feed=None,
+                time_collectives=False):
+    """``prefill`` of ``plan``'s prompts into an empty ring then its decode
+    steps, on one device or over ``mesh`` (``params`` this rank's
+    blocks); decode step i takes ``feed[i]`` (another run's greedy
+    tokens) where given, else this run's own greedy token. Returns the
+    logits of every call (f32) and the greedy tokens, of this rank's
+    rows (``rows``), as numpy (which the ranks' queue carries), the ms
+    of each call and each call's collective bytes by kind; with
+    ``time_collectives`` also each call's collectives' seconds
+    (``timed_collectives``)."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.sharding import tree_local
+    from repro_torch.models import model as M
+    from repro_torch.training.optimizer import tree_map
+    B, cap = plan["B"], plan["capacity"]
+    rng = np.random.default_rng(plan["seed"])
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (B, plan["S"]))).to(dev)
+    cache = M.init_cache(cfg, B, cap, dev)
+    kw, rows = {}, np.arange(B)
+    if mesh is not None:
+        specs = rules.cache(cache)
+        cache = tree_map(lambda t: t.clone(), tree_local(cache, specs, mesh))
+        kw = dict(mesh=mesh, rules=rules, capacity=cap)
+        rows = tree_local({"len": torch.arange(B)}, specs, mesh)["len"]
+    out = dict(logits=[], greedy=[], ms=[], coll=[], coll_s=[],
+               rows=np.asarray(rows))
+    with torch.no_grad():
+        for i in range(plan["steps"] + 1):
+            calls = []
+            timing = timed_collectives(dev, calls) if time_collectives \
+                else contextlib.nullcontext()
+            _sync(dev)
+            t0 = time.perf_counter()
+            with timing, C.recording() as rec:
+                if i == 0:
+                    logits, cache = M.prefill(cfg, params, tokens, cache,
+                                              **kw)
+                else:
+                    nxt = out["greedy"][-1] if feed is None else feed[i - 1]
+                    logits, cache = M.decode_step(
+                        cfg, params, torch.as_tensor(nxt).to(dev), cache,
+                        **kw)
+            _sync(dev)
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["coll"].append(dict(rec))
+            out["coll_s"].append(calls)
+            out["logits"].append(logits.float().cpu().numpy())
+            out["greedy"].append(logits.argmax(-1).cpu().numpy())
+    return out
+
+
+def serve_rank(mesh, plans: dict, feeds: dict) -> dict:
+    """(o1) or (o2) on one rank: each plan with the kernels' counts
+    zeroed just before it and read just after; (o1)'s calls then once
+    more with their collectives timed (``timed_collectives``)."""
+    wrappers = kernel_counts()
+    out = {}
+    for name, plan in plans.items():
+        cfg, params, rules = serve_setup(plan, mesh.device, mesh)
+        for w in wrappers.values():
+            w.launches = 0
+        out[name] = serve_steps(plan, cfg, params, mesh.device, mesh, rules,
+                                feeds[name])
+        out[name]["counts"] = {n: w.launches for n, w in wrappers.items()}
+        if name == "o1":
+            again = serve_steps(plan, cfg, params, mesh.device, mesh, rules,
+                                feeds[name], time_collectives=True)
+            out[name]["timed"] = dict(ms=again["ms"],
+                                      coll_s=again["coll_s"])
+        del params
+        free_device()
+    return out
+
+
+def serve_reference(plan, dev) -> dict:
+    """``plan`` on one device (its moe layers the slice-wise moe of one
+    data shard and two model slices: what ``expert_tp`` computes over
+    the whole batch on a 2x2 mesh)."""
+    from repro_torch.models import moe as moe_mod
+    patched = moe_mod.moe_apply
+    if plan["expert_tp"]:
+        moe_mod.moe_apply = slicewise_moe(1, 2)
+    try:
+        cfg, params, _ = serve_setup(plan, dev)
+        out = serve_steps(plan, cfg, params, dev)
+    finally:
+        moe_mod.moe_apply = patched
+    del params
+    free_device()
+    return out
+
+
+def serve_check(tag, plan, one, got, tol) -> dict:
+    """A rank's run of ``plan`` against one device's: every call's logits
+    within ``tol`` of that call's largest |logit|, and its greedy tokens
+    equal wherever the one device's top two logits are further apart
+    than twice the worst error (closer, the order is within the
+    types' rounding). Returns (worst error, tokens equal, decidable)."""
+    worst, same, decidable = 0.0, 0, 0
+    rows = got["rows"]
+    for g, w in zip(got["logits"], one["logits"]):
+        w = w[rows]
+        check(g.shape == w.shape, f"{tag}: logits {g.shape} vs {w.shape}")
+        worst = max(worst, float(np.abs(g - w).max() / np.abs(w).max()))
+    for g, w, lg in zip(got["greedy"], one["greedy"], one["logits"]):
+        w, lg = w[rows], lg[rows]
+        top = np.sort(lg, axis=-1)[:, -2:]
+        gap = (top[:, 1] - top[:, 0]) / np.abs(lg).max(axis=-1)
+        ok = gap > 2 * worst
+        decidable += int(ok.sum())
+        same += int(((g == w) | ~ok).sum())
+    check(worst <= tol, f"{tag}: logits {worst:.2e} of their max > {tol}")
+    n = len(got["greedy"]) * len(rows)
+    check(same == n, f"{tag}: {n - same} of {n} greedy tokens differ where "
+          "the one device's top two are apart")
+    return dict(worst=worst, decidable=decidable, n=n)
+
+
+def mesh_serve_checks(refs: dict, r12: list, r22: list) -> list:
+    """(o1) and (o2): each rank's runs against one device's, and (o1)'s
+    collective bytes against the dry run's for the same calls on a 1x2
+    placeholder mesh. Returns the ranks' counts."""
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.specs import ShapeCell
+    from repro_torch.models.model import cache_window
+    card_line = card()
+    for tag, name, plan, ranks, tol in (
+            ("(o1) qwen2-1.5b whole bf16, 1x2", "o1", O1, r12, O_BF16_TOL),
+            ("(o1) f32 twin, 2 layers, 1x2", "o1_twin", O1_TWIN, r12,
+             O_F32_TOL),
+            ("(o2) phi3.5-moe 2 of 32 layers f32, 2x2 expert_tp", "o2", O2,
+             r22, O_F32_TOL)):
+        one = refs[name]
+        for r in ranks:
+            got = r["o"][name]
+            res = serve_check(f"{tag} rank {r['rank']}", plan, one, got, tol)
+            log(f"[mesh-serve] {tag} rank {r['rank']}: prefill B "
+                f"{plan['B']} x {plan['S']} into {plan['capacity']} slots "
+                f"{got['ms'][0]:.1f} ms (one device {one['ms'][0]:.1f}), a "
+                f"decode step {np.median(got['ms'][1:]):.2f} ms (one device "
+                f"{np.median(one['ms'][1:]):.2f}); logits within "
+                f"{res['worst']:.2e} of their max (<= {tol}), greedy tokens "
+                f"equal where decidable ({res['decidable']} of {res['n']}); "
+                f"launches {got['counts']}; {card_line}")
+    # (o1)'s collective bytes: the dry run's trace of the same calls
+    cfg = plan_config(O1)
+    pm = make_debug_mesh(1, 2)
+    rules = ShardingRules(cfg, pm, mode="decode")
+    pre = DR.trace_cell(cfg, ShapeCell("o1", "prefill", O1["S"], O1["B"]),
+                        pm, rules, capacity=O1["capacity"])["collective"]
+    dec = DR.trace_cell(cfg, ShapeCell("o1", "decode", O1["capacity"],
+                                       O1["B"]), pm, rules)["collective"]
+    for r in r12:
+        coll = [{k: float(v) for k, v in c.items()}
+                for c in r["o"]["o1"]["coll"]]
+        log(f"[mesh-serve] (o1) rank {r['rank']} collective bytes: prefill "
+            f"{coll[0]} (dry run {pre}), a decode step {coll[1]} (dry run "
+            f"{dec})")
+        check(coll[0] == pre and all(c == dec for c in coll[1:]),
+              f"(o1) rank {r['rank']}: collective bytes differ from the dry "
+              "run's")
+        t = r["o"]["o1"]["timed"]
+        dec_ms = np.median(t["ms"][1:])
+        dec_n = [len(c) for c in t["coll_s"][1:]]
+        dec_s = np.median([sum(c) for c in t["coll_s"][1:]])
+        log(f"[mesh-serve] (o1) rank {r['rank']}, the same calls again with "
+            f"each collective between two device syncs: prefill "
+            f"{t['ms'][0]:.1f} ms, of it {len(t['coll_s'][0])} collectives "
+            f"{sum(t['coll_s'][0]) * 1e3:.1f} ms; a decode step "
+            f"{dec_ms:.2f} ms (median), of it {dec_n[0]} collectives "
+            f"{dec_s * 1e3:.2f} ms ({dec_s * 1e3 / dec_ms:.1%}; "
+            f"{dec_s * 1e6 / dec_n[0]:.0f} us each); {card_line}")
+        check(len(set(dec_n)) == 1, f"(o1) rank {r['rank']}: decode steps "
+              f"issued {dec_n} collectives")
+        n = r["o"]["o1"]["counts"]["flash_prefill"]
+        check(n == cfg.num_layers,
+              f"(o1) rank {r['rank']}: {n} flash_prefill launches, expected "
+              f"{cfg.num_layers} (one a layer)")
+    check(cache_window(cfg, O1["capacity"]) == O1["capacity"], "(o1) ring")
+    return [r["o"][name]["counts"] for r in r12
+            for name in ("o1", "o1_twin")] \
+        + [r["o"]["o2"]["counts"] for r in r22]
+
+
+def dryrun_card_phase(dev) -> dict:
+    """(o3) the dry run against the card on (l0)'s step: qwen2-1.5b whole
+    in bf16, AdamW, B 8 x S 256, no remat, on one device. The flops of
+    the step on meta equal ``FlopCounterMode`` on the card's step, and
+    the dry run's peak above its arguments is within ``O3_MEM_TOL`` of
+    the card's (``max_memory_allocated`` from a reset, less what was
+    allocated before the step; one warm step first)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.models.model import param_shapes
+    from repro_torch.training import optimizer as O
+    from repro_torch.training.data import synthetic_batches
+    from repro_torch.training.train_loop import TrainConfig, build_train_step
+    t0 = time.perf_counter()
+    cfg = get_config("qwen2-1.5b")
+    params, opt, state = train_setup(cfg, dev)
+    step = build_train_step(cfg, opt, TrainConfig(remat=False))
+    batches = synthetic_batches(cfg.vocab_size, TRAIN_B, TRAIN_S, seed=0)
+    step(params, state, next(batches))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    step(params, state, next(batches))
+    torch.cuda.synchronize()
+    card_peak = torch.cuda.max_memory_allocated() - before
+    batch = next(batches)
+    with FlopCounterMode(display=False) as fc:
+        step(params, state, batch)
+    card_flops = fc.get_total_flops()
+    del params, state, step
+    free_device()
+    mp = param_shapes(cfg)
+    meta = (mp, O.opt_init(opt, mp), {
+        k: torch.empty(v.shape, dtype=torch.from_numpy(v).dtype,
+                       device="meta") for k, v in batch.items()})
+    pred = DR.trace(build_train_step(cfg, opt, TrainConfig(remat=False)),
+                    meta)
+    mem = pred["memory"]
+    above = mem["peak_memory_in_bytes"] - mem["argument_size_in_bytes"]
+    rel = above / card_peak - 1
+    log(f"[dryrun] (o3) {cfg.name} train step B {TRAIN_B} x S {TRAIN_S}, "
+        f"bf16, AdamW: flops dry run {pred['flops']:.6e}, card "
+        f"FlopCounterMode {card_flops:.6e}; peak above the arguments dry "
+        f"run {above / 2 ** 30:.3f} GiB, card {card_peak / 2 ** 30:.3f} GiB "
+        f"({rel:+.1%}); arguments "
+        f"{mem['argument_size_in_bytes'] / 2 ** 30:.3f} GiB, dry-run peak "
+        f"{mem['peak_memory_in_bytes'] / 2 ** 30:.3f} GiB;"
+        f" the trace {pred['trace_s']:.1f} s; {card()}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(pred["flops"] == card_flops,
+          f"(o3) flops: dry run {pred['flops']} vs card {card_flops}")
+    check(abs(rel) <= O3_MEM_TOL, f"(o3) peak: dry run {above} vs card "
+          f"{card_peak} ({rel:+.1%})")
+    return dict(flops=card_flops, card_peak=card_peak, dry_peak=above)
+
+
+def start_host_dryrun():
+    """(o4) the dry run of ``O4_CELLS`` on this host's CPU (meta tensors,
+    nothing on the card), a process for each cell, started beside (l4)'s
+    launcher processes, which time nothing but their whole run:
+    (processes, their output directory)."""
+    import tempfile
+    out = tempfile.mkdtemp(prefix=".smoke_dryrun_", dir=ROOT)
+    procs = []
+    for a, sh, etp in O4_CELLS:
+        argv = ["--arch", a, "--shape", sh, "--out", out,
+                "--no-calibration"] + (["--expert-tp"] if etp else [])
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *argv],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return procs, out
+
+
+def stop_host_dryrun(procs, out_dir) -> None:
+    """The (o4) processes killed if they still run, their directory
+    removed."""
+    import shutil
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def host_dryrun_phase(procs, out_dir) -> list:
+    """(o4)'s result, the processes waited for: each cell ``ok``, with its
+    seconds and peak GB a device."""
+    from repro_torch.launch import dryrun as DR
+    for proc in procs:
+        text, _ = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"(o4) dry run exited "
+              f"{proc.returncode}: {text[-2000:]}")
+    out = []
+    for arch, shape, etp in O4_CELLS:
+        with open(Path(out_dir) / f"{arch}_{shape}_pod256.json") as f:
+            r = json.load(f)
+        check(r["status"] == "ok", f"(o4) {arch} x {shape}: "
+              f"{r.get('error')}")
+        mem = r["memory_analysis"]
+        log(f"[dryrun] (o4) {arch} x {shape} x pod256"
+            f"{' expert_tp' if etp else ''}: {r['status']}, traced in "
+            f"{r['trace_s']:.1f} s on the host (beside (l4)), peak "
+            f"{mem['peak_memory_in_bytes'] / 1e9:.2f} GB a device (fits "
+            f"80 GB: {r['fits']}), dominant {r['dominant']}, terms "
+            f"compute {r['compute_term_s']:.3e} memory "
+            f"{r['memory_term_s']:.3e} collective "
+            f"{r['collective_term_s']:.3e} s ({DR.CARD})")
+        out.append(r)
+    return out
 
 
 # ======================================================================
@@ -4789,7 +5239,8 @@ def main() -> int:
     # with its own counts: every one runs the fused kernel
     t_e = time.perf_counter()
     for tag, fn, args in (
-            ("prefix plane (e1)", prefix_phase, (cfg, params, dev)),
+            ("prefix plane (e1)", prefix_phase,
+             (*first_layers(cfg, params, CUT_LAYERS), dev)),
             ("spec plane (e2)", spec_phase,
              (cfg, params, dev, eng["planes"]["fused"])),
             ("int8 wire tier (e3)", int8_phase, (cfg, params, dev))):
@@ -4913,11 +5364,21 @@ def main() -> int:
     training_phase(dev)
     log(f"[train] phase (l): {time.perf_counter() - t_l:.1f} s")
     # (n) training over a mesh: no kernel on its path either; each rank
-    # zeroes and returns its own counts
-    for counts in mesh_train_phase(dev):
+    # zeroes and returns its own counts. (o1), (o2): serving over a mesh
+    # in the same ranks, each part with its own counts: every rank's
+    # prefill runs flash_prefill on its heads
+    train_counts, serve_counts = mesh_train_phase(dev)
+    for counts in train_counts:
         check(not any(counts.values()),
               f"training over a mesh: kernel launches {counts}, expected "
               "none")
+    for counts in serve_counts:
+        add(counts, {"flash_prefill": 0})
+    # (o3) the dry run against the card (no kernel on the step)
+    t_o = time.perf_counter()
+    _, counts = main_path("dry run vs the card (o3)", dryrun_card_phase, dev)
+    check(not any(counts.values()), f"(o3): kernel launches {counts}")
+    log(f"[dryrun] phase (o3): {time.perf_counter() - t_o:.1f} s")
     # (m) kernel autotune: the engine's fused round with the cache
     for counts in autotune_phase(dev):
         add(counts, {"paged_prefill_attention": 0})

@@ -41,11 +41,57 @@ ranks that share a card it stages CUDA tensors through host memory only
 for ``broadcast`` and ``all_reduce``; the serving plane's
 ``ServingMesh.gather`` takes the same form. Each rank's result is
 bit-equal across the ranks that receive it.
+
+Every collective goes through ``_collective``, the one place that
+moves data: on a placeholder mesh (``launch/mesh.py::PlaceholderMesh``,
+the dry run's) it moves nothing and the caller's tensor of the
+result's shape and type comes back as it is (meta tensors under the
+dry run), while a real mesh runs the ``all_reduce``. On both, a
+``recording()`` in force adds the per-device bytes of each
+collective's result under the kind of collective it is, in the names
+the reference's ``collective_bytes_from_hlo`` reads from the compiled
+program (``all-gather``, ``all-reduce``, ``reduce-scatter``,
+``all-to-all``, ``collective-permute``) and ``total``: the logical
+collective, so a gather counts as the ``all-gather`` of its gathered
+result though it travels as an ``all_reduce`` into zeros.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.distributed as dist
+
+_RECORDERS: list = []
+
+
+@contextlib.contextmanager
+def recording():
+    """Within the block, every collective adds its result's bytes to the
+    dict this yields, by kind and under ``total``."""
+    rec: dict = {}
+    _RECORDERS.append(rec)
+    try:
+        yield rec
+    finally:
+        _RECORDERS.remove(rec)
+
+
+def _collective(buf: torch.Tensor, mesh, axis: str, op, kind: str,
+                nbytes: int) -> torch.Tensor:
+    """``buf`` summed (or ``op``) over ``axis`` in place, recorded as a
+    ``kind`` collective whose result has ``nbytes`` bytes a device;
+    nothing moves on a placeholder mesh."""
+    for rec in _RECORDERS:
+        rec[kind] = rec.get(kind, 0) + nbytes
+        rec["total"] = rec.get("total", 0) + nbytes
+    if not getattr(mesh, "placeholder", False):
+        dist.all_reduce(buf, op=op, group=mesh.group(axis))
+    return buf
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 # ======================================================================
@@ -55,7 +101,7 @@ def all_reduce(t: torch.Tensor, mesh, axis: str,
                op=dist.ReduceOp.SUM) -> torch.Tensor:
     """The sum (or ``op``) of ``t`` over ``axis``, in place."""
     if mesh.shape[axis] > 1:
-        dist.all_reduce(t, op=op, group=mesh.group(axis))
+        _collective(t, mesh, axis, op, "all-reduce", _nbytes(t))
     return t
 
 
@@ -71,7 +117,8 @@ def all_gather(t: torch.Tensor, dim: int, mesh, axis: str) -> torch.Tensor:
     shape[dim] = n * k
     out = t.new_zeros(shape)
     out.narrow(dim, mesh.coord(axis) * k, k).copy_(t)
-    return all_reduce(out, mesh, axis)
+    return _collective(out, mesh, axis, dist.ReduceOp.SUM, "all-gather",
+                       _nbytes(out))
 
 
 def reduce_scatter(t: torch.Tensor, dim: int, mesh,
@@ -83,7 +130,8 @@ def reduce_scatter(t: torch.Tensor, dim: int, mesh,
         return t
     dim = dim % t.dim()
     k = t.shape[dim] // n
-    out = all_reduce(t.contiguous().clone(), mesh, axis)
+    out = _collective(t.contiguous().clone(), mesh, axis,
+                      dist.ReduceOp.SUM, "reduce-scatter", _nbytes(t) // n)
     return out.narrow(dim, mesh.coord(axis) * k, k).contiguous()
 
 
@@ -100,7 +148,8 @@ def all_to_all(t: torch.Tensor, split: int, concat: int, mesh,
     x = x.reshape((n, x.shape[0] // n) + x.shape[1:]).contiguous()
     buf = x.new_zeros((n,) + x.shape)                # [dst, src, ...]
     buf[:, mesh.coord(axis)] = x
-    out = all_reduce(buf, mesh, axis)[mesh.coord(axis)]
+    out = _collective(buf, mesh, axis, dist.ReduceOp.SUM, "all-to-all",
+                      _nbytes(x))[mesh.coord(axis)]
     # out [src, k, rest]: the block's own dims back in t's order, then
     # the source index merged into ``concat`` as its major part
     out = out.movedim(1, split + 1).movedim(0, concat)
@@ -182,7 +231,7 @@ class _SumOverModel(torch.autograd.Function):
 class _MeanOverData(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh):
-        return all_reduce(x.clone(), mesh, "data") / mesh.shape["data"]
+        return all_reduce(x.clone(), mesh, "data") / mesh.data
 
     @staticmethod
     def backward(ctx, g):

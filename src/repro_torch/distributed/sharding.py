@@ -260,6 +260,14 @@ class ShardingRules:
         return P(self._b(batch), self._m(self.cfg.vocab_size))
 
     # ------------------------------------------------------------ cache
+    def rows_spec(self, batch: int):
+        """The spec entry of a cache's batch dim (``len``'s)."""
+        return self._b(batch)
+
+    def ring_spec(self, window: int):
+        """The spec entry of a ring of ``window`` slots' sequence dim."""
+        return self._seq(window)
+
     def cache(self, shapes) -> dict:
         """Decode/prefill cache: batch over data (when divisible); KV ring
         sequence over 'model' (over both axes in 2D-TP decode); SSM heads /

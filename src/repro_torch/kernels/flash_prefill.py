@@ -15,8 +15,14 @@ q/k/v ``[B, H, S, D]``, f32 or bf16, GQA through ``h // G``) except that
 ``Sq`` and ``Skv`` may be any length: the kernel bounds-checks its tiles.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
-plain version ``ref.flash_prefill_ref``. The wrapper counts its kernel
-launches in its ``launches`` attribute.
+plain version ``ref.flash_prefill_ref``, and so does a meta tensor: the
+dry run (``launch/dryrun.py``) traces and counts the plain version's
+einsum attention, as the reference's dry run lowers einsum attention
+and no Pallas kernel. On meta it runs ``META_ROWS`` query rows at a
+time (the same products, each row block against every key), so that
+the trace, like the kernel, never holds a prompt's whole [Sq, Skv]
+logits at once. Any other device raises. The wrapper counts its
+kernel launches in its ``launches`` attribute.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels._build import library
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+META_ROWS = 1024     # the dry run's query rows a block
 _HEAD_DIMS = (64, 80, 128, 192, 256)    # the instantiations in the .cu
 
 _P = ctypes.c_void_p
@@ -79,6 +86,11 @@ def flash_prefill(q, k, v, *, causal: bool = True, window=None,
     Query row t sits at position ``q_offset + t``; it attends to keys
     ``<= q_offset + t`` when ``causal`` and to the last ``window``
     positions when a window is given."""
+    if q.device.type == "meta":
+        return torch.cat([ref.flash_prefill_ref(
+            q[:, :, i:i + META_ROWS], k, v, causal=causal, window=window,
+            q_offset=q_offset + i) for i in range(0, q.shape[2], META_ROWS)],
+            dim=2)
     if q.device.type == "cpu":
         return ref.flash_prefill_ref(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset)

@@ -19,7 +19,9 @@ kernel takes each input to f32 on its own.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
 plain version, the model's ``models.ssm.ssd_chunked`` on the inputs in
-f32 with B and C repeated over the heads. ``ssd_scan.launches`` counts
+f32 with B and C repeated over the heads, and so does a meta tensor
+(the dry run traces the plain version's arithmetic); any other device
+raises. ``ssd_scan.launches`` counts
 calls of the function that reached the card (one call issues four
 kernel launches on the caller's stream).
 """
@@ -89,7 +91,7 @@ def ssd_scan(X, dA, B_mat, C_mat, *, chunk: int = 64):
     cs = min(chunk, l)
     if l % cs:
         raise ValueError(f"length {l} is not a multiple of chunk {cs}")
-    if X.device.type == "cpu":
+    if X.device.type in ("cpu", "meta"):
         # imported here: models.ssm calls this wrapper
         from repro_torch.models.ssm import ssd_chunked
         if h % g:

@@ -31,6 +31,14 @@ that diverge fail instead of hanging.
 
 ``spawn`` starts the ranks of a mesh from one process and returns what
 each returned; the launcher, the tests and ``chip_smoke.py`` share it.
+
+``make_production_mesh`` and ``make_debug_mesh`` (the JAX package's
+``launch/mesh.py``) give placeholder meshes: one rank's coordinates and
+the axis sizes, with no process group and no device
+(``PlaceholderMesh``). A rank's program runs against one as it runs
+against a ``ServingMesh``; its collectives move nothing
+(``distributed/collectives.py``). The dry run (``launch/dryrun.py``)
+traces rank 0's program on meta tensors over one.
 """
 from __future__ import annotations
 
@@ -85,6 +93,8 @@ class ServingMesh:
     @property
     def world(self) -> int:
         return self.data * self.model
+
+    size = world            # the device count, as a JAX mesh names it
 
     @property
     def idx(self) -> int:
@@ -188,6 +198,95 @@ class ServingMesh:
         t = torch.tensor([x, -x], dtype=torch.float64)
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.cmd_group)
         return t[0].item() == x and -t[1].item() == x
+
+
+class PlaceholderMesh:
+    """One rank's view of a mesh that has no processes: the axes' sizes
+    (``shape``, in order, e.g. ``{"pod": 2, "data": 16, "model": 16}``)
+    and this rank's coordinates on them (default all 0: rank 0). It
+    answers what a rank's program asks of a ``ServingMesh``; its
+    collectives move nothing and return tensors of their results'
+    shapes (``distributed/collectives.py``). Every axis but 'model' is a
+    data axis: ``data`` counts the data ranks (pod x data), and a
+    reduction over 'data' stands for the pod x data group
+    (``group("data")``), while a leaf sharded over 'data' (FSDP) is cut
+    over the 'data' axis alone, as ``ShardingRules`` lays it out."""
+
+    placeholder = True
+    device = torch.device("meta")
+
+    def __init__(self, shape: dict, coords: Optional[dict] = None):
+        self.shape = dict(shape)
+        self.axis_names = tuple(self.shape)
+        self.coords = {a: 0 for a in self.axis_names}
+        self.coords.update(coords or {})
+        for a, i in self.coords.items():
+            if not 0 <= i < self.shape[a]:
+                raise ValueError(f"coordinate {a}={i} outside "
+                                 f"{self.shape[a]}")
+
+    def __repr__(self):
+        return f"PlaceholderMesh({self.shape}, rank {self.rank})"
+
+    @property
+    def data(self) -> int:
+        return int(np.prod([self.shape[a] for a in data_axes(self)]))
+
+    @property
+    def model(self) -> int:
+        return self.shape["model"]
+
+    @property
+    def world(self) -> int:
+        return int(np.prod(list(self.shape.values())))
+
+    size = world            # the device count, as a JAX mesh names it
+
+    @property
+    def rank(self) -> int:
+        r = 0
+        for a in self.axis_names:
+            r = r * self.shape[a] + self.coords[a]
+        return r
+
+    @property
+    def idx(self) -> int:
+        return self.coords["model"]
+
+    @property
+    def is_leader(self) -> bool:
+        return self.rank == 0
+
+    def coord(self, axis: str) -> int:
+        return self.coords[axis]
+
+    def group(self, axis: str) -> tuple:
+        """The axes a collective over ``axis`` spans (no process group):
+        'data' spans every data axis."""
+        return data_axes(self) if axis == "data" else (axis,)
+
+    def gather_axis(self, t: torch.Tensor, dim: int,
+                    axis: str) -> torch.Tensor:
+        return all_gather(t, dim, self, axis)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> PlaceholderMesh:
+    """16 x 16 = 256 devices a pod, ('data', 'model'); ``multi_pod`` adds
+    a leading 'pod' axis of 2 (a data axis): the reference's production
+    meshes, as placeholders (rank 0's view)."""
+    if multi_pod:
+        return PlaceholderMesh({"pod": 2, "data": 16, "model": 16})
+    return PlaceholderMesh({"data": 16, "model": 16})
+
+
+def make_debug_mesh(data: int = 2, model: int = 2) -> PlaceholderMesh:
+    """A small ('data', 'model') placeholder mesh (rank 0's view)."""
+    return PlaceholderMesh({"data": data, "model": model})
+
+
+def data_axes(mesh) -> tuple:
+    """Every non-'model' axis is a data (batch) axis, 'pod' included."""
+    return tuple(n for n in mesh.axis_names if n != "model")
 
 
 def make_serving_mesh(spec: str, *, rank: int, init_method: str,

@@ -32,7 +32,8 @@ Real engine demo (the scripted multi-turn conversation, no gateway):
 ``paligemma-3b`` (the vlm family's text path, head dim 256) and
 ``qwen3-4b`` serve the published width (bf16) with random weights drawn
 from ``--seed``; ``tiny`` is the reduced two-layer f32 variant the CPU
-tests use. All run on ``--device cuda`` unless asked for the CPU.
+tests use. ``--layers N`` serves a config's first N layers at its full
+width. All run on ``--device cuda`` unless asked for the CPU.
 
 ``--mesh DxM`` (real and live) shards the paged KV plane over D x M
 ranks (DESIGN.md §9): the launcher builds the kernels, spawns the ranks
@@ -121,25 +122,28 @@ _WORKLOAD_FLAGS = ("workload", "system", "sessions", "concurrency",
                    "barge_in", "kv_gb")
 
 
-def build_config(name: str):
+def build_config(name: str, layers=None):
+    """``name``'s config, on its first ``layers`` layers (None: all)."""
     if name == "tiny":
-        return reduced(get_config("qwen2-1.5b"), layers=2, d_model=64,
-                       vocab=503)
-    return get_config(name)
+        cfg = reduced(get_config("qwen2-1.5b"), layers=2, d_model=64,
+                      vocab=503)
+    else:
+        cfg = get_config(name)
+    return cfg if layers is None else cfg.replace(num_layers=layers)
 
 
-def build_model(config: str, device, seed: int = 0):
+def build_model(config: str, device, seed: int = 0, layers=None):
     """(cfg, params, device): weights are random, drawn from a
     ``torch.Generator`` on ``device`` seeded with ``seed``."""
     dev = resolve_device(device)
-    cfg = build_config(config)
+    cfg = build_config(config, layers)
     gen = torch.Generator(device=dev).manual_seed(seed)
     return cfg, init_params(cfg, gen, dev), dev
 
 
-def build_demo(config: str, device, seed: int = 0):
+def build_demo(config: str, device, seed: int = 0, layers=None):
     """(cfg, params, demo kwargs) for ``run_multiturn_demo``."""
-    cfg, params, dev = build_model(config, device, seed)
+    cfg, params, dev = build_model(config, device, seed, layers)
     return cfg, params, dict(DEMOS[config], seed=seed, device=dev)
 
 
@@ -166,11 +170,11 @@ def _print(s: dict, as_json: bool) -> None:
 
 
 def _real(config: str, device, seed: int, fused_step: bool, as_json: bool,
-          mesh) -> None:
+          mesh, layers=None) -> None:
     """--engine real on this process (or this rank of ``mesh``)."""
     from repro_torch.serving.paged_engine import run_multiturn_demo
     cfg, params, kw = build_demo(config, mesh.device if mesh else device,
-                                 seed)
+                                 seed, layers)
     out = run_multiturn_demo(
         cfg, params, fused_step=fused_step, mesh=mesh,
         log=(lambda *_a, **_k: None) if as_json else print, **kw)
@@ -179,11 +183,11 @@ def _real(config: str, device, seed: int, fused_step: bool, as_json: bool,
 
 
 def _live(config: str, device, seed: int, kw: dict, as_json: bool,
-          replicas: int, mesh) -> None:
+          replicas: int, mesh, layers=None) -> None:
     """--engine live on this process (or this rank of ``mesh``): one
     engine, or a fleet of ``replicas`` engines sharing the weights."""
     cfg, params, dev = build_model(config, mesh.device if mesh else device,
-                                   seed)
+                                   seed, layers)
     if replicas > 1:
         from repro_torch.serving.fleet import run_fleet_workload
         m, gw = run_fleet_workload(replicas=replicas, model=(cfg, params),
@@ -260,6 +264,9 @@ def main(argv=None) -> None:
                          "fused step (DESIGN.md §11). --no-fused-step "
                          "serves on the per-token differential-control "
                          "plane")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="real/live engines: serve the config's first N "
+                         "layers at its full width (default all)")
     ap.add_argument("--mesh", default=None, metavar="DxM",
                     help="real/live engines: shard the paged KV plane "
                          "over D x M ranks, e.g. 1x2 (DESIGN.md §9); "
@@ -348,13 +355,18 @@ def main(argv=None) -> None:
                  "--config")
     if args.engine == "sim":
         given = [f for f, v in (("--device", args.device),
-                                ("--config", args.config))
+                                ("--config", args.config),
+                                ("--layers", args.layers))
                  if v is not None]
         if given:
             ap.error(f"{', '.join(given)} only apply to --engine "
                      f"real|live; the simulator touches no device")
     device = args.device or "cuda"
     config = args.config or "qwen2-1.5b"
+    if args.layers is not None and not \
+            1 <= args.layers <= build_config(config).num_layers:
+        ap.error(f"--layers must be 1..{build_config(config).num_layers} "
+                 f"for {config}")
 
     if args.engine == "real":
         given = [f"--{f.replace('_', '-')}" for f in _WORKLOAD_FLAGS
@@ -366,7 +378,8 @@ def main(argv=None) -> None:
                 f"plane under load) or --engine sim (paper-scale "
                 f"simulation)")
         _serve(args.mesh, device, functools.partial(
-            _real, config, device, args.seed, args.fused_step, args.json))
+            _real, config, device, args.seed, args.fused_step, args.json,
+            layers=args.layers))
         return
 
     # shared workload defaults for sim and live
@@ -439,7 +452,8 @@ def main(argv=None) -> None:
             audio_per_token_s=live["audio_per_token_s"],
             frontier_cap_s=3.0 if system == "liveserve" else None)
         _serve(args.mesh, device, functools.partial(
-            _live, config, device, args.seed, kw, args.json, replicas))
+            _live, config, device, args.seed, kw, args.json, replicas,
+            layers=args.layers))
         return
     else:
         from repro_torch.serving.costmodel import PIPELINES

@@ -7,7 +7,8 @@ D * M rank processes started from this one (``launch/mesh.py::spawn``;
 ranks that share a card talk gloo), every family;
 ``--distributed`` takes the ranks from ``torchrun``'s environment
 instead (one process a rank, ``init_method="env://"``) and needs
-``--mesh`` with D * M ranks. Rank 0 prints the losses.
+``--mesh`` with D * M ranks. ``--layers N`` trains the config's first
+N layers at its full width. Rank 0 prints the losses.
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --arch qwen3-4b --reduced --steps 50 --batch 8 --seq 256
@@ -45,6 +46,8 @@ def prepare(args: dict, mesh=None) -> dict:
     cfg = get_config(args["arch"])
     if args["reduced"]:
         cfg = reduced(cfg)
+    if args["layers"] is not None:
+        cfg = cfg.replace(num_layers=args["layers"])
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          dev)
     opt = opt_mod.select_optimizer(cfg)
@@ -100,6 +103,8 @@ def main(argv=None) -> None:
     ap.add_argument("--arch", default="qwen3-4b")
     ap.add_argument("--reduced", action="store_true",
                     help="smoke-scale config")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="train the config's first N layers (default all)")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)
@@ -112,6 +117,8 @@ def main(argv=None) -> None:
                     help="ranks from torchrun's environment (needs --mesh)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
+    if args.layers is not None and args.layers < 1:
+        ap.error("--layers must be >= 1")
     if args.mesh is not None:
         try:
             d, m = parse_mesh(args.mesh)

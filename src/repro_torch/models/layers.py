@@ -3,9 +3,10 @@ tensors, in the JAX package's pytree layout (``[d, H, hd]`` projection
 weights, ``1 + w`` RMSNorm scales) so weights carry across one to one.
 
 ``gqa_attention`` is the reference's einsum attention under a boolean
-mask; the ring-cache decode uses it over the cache's W slots, and the
-training graph (``models/model.py::forward``) and a prefix-LM prefill
-over their whole sequence, as the reference does. Prefill and the paged
+mask (or, for the dry run, its surrogate); the ring-cache decode uses
+it over the cache's W slots, and the training graph
+(``models/model.py::forward``) and a prefix-LM prefill over their
+whole sequence, as the reference does. Prefill and the paged
 engine attend through the hand-written kernels in
 ``repro_torch.kernels``.
 """
@@ -107,15 +108,31 @@ def attention_mask(q_pos, kv_pos, *, causal: bool, window=None,
     return mask
 
 
-def gqa_attention(q, k, v, mask, *, scale=None):
+def gqa_attention(q, k, v, mask, *, scale=None, impl: str = "einsum"):
     """Grouped-query attention, q [B, Sq, Hq, D], k/v [B, Skv, Hkv, D]
     (v may be narrower), mask [B, Sq, Skv] bool -> [B, Sq, Hq, Dv].
     Logits and softmax in f32 (the reference's
     ``preferred_element_type``), probabilities cast to v's dtype for the
-    value product. ``scale`` defaults to 1/sqrt(D)."""
+    value product. ``scale`` defaults to 1/sqrt(D).
+
+    ``impl`` "surrogate" is the reference's stand-in for the S^2 logits
+    chain, which only streams Q, K, V and O: each KV head's mean of
+    ``k + v`` over the keys added to the scaled queries of its group
+    (the mask unread). The dry run traces it to see a cell's load
+    without attention's; no card path takes it."""
     B, Sq, Hq, D = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv
+    if impl == "surrogate":
+        s = 1.0 / math.sqrt(D) if scale is None else scale
+        kv = (k + v).mean(dim=1, keepdim=True)                # reads K+V
+        out = q * torch.tensor(s, dtype=q.dtype) \
+            + kv.repeat_interleave(G, dim=2)                  # reads Q
+        Dv = v.shape[-1]
+        return out.reshape(B, Sq, Hq, Dv) if D == Dv \
+            else out[..., :1].expand(B, Sq, Hq, Dv)
+    if impl != "einsum":
+        raise ValueError(f"unknown attention impl {impl!r}")
     qg = q.reshape(B, Sq, Hkv, G, D)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
     logits = logits / math.sqrt(D) if scale is None else logits * scale

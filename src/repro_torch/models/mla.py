@@ -91,7 +91,8 @@ def _project_kv_latent(params, cfg, x, positions):
 
 
 def mla_forward(params, cfg, x, positions, *, plain: bool = False,
-                graph: str = "serve", mask=None, mesh=None):
+                graph: str = "serve", mask=None, mesh=None,
+                impl: str = "einsum"):
     """The prefill path (decompressed), causal (and windowed where the
     config has a window) over the S tokens of x [B, S, d]. Returns (out
     [B, S, d], (ckv, k_rope)). ``plain`` takes ``flash_prefill``'s plain
@@ -104,7 +105,12 @@ def mla_forward(params, cfg, x, positions, *, plain: bool = False,
     ``w_uv`` and ``wo`` are this rank's heads' blocks, the latents
     (``q_lat``, ``ckv``, the shared ``k_rope``) enter their products
     through ``copy_to_model``, and ``out`` is this rank's heads' part
-    of the sum, for the caller's ``reduce_from_model``."""
+    of the sum, for the caller's ``reduce_from_model``.
+
+    ``impl`` "surrogate" (the dry run's, on either graph): the
+    reference's stand-in for the attention, the scaled queries' first
+    ``v_head_dim`` columns plus each head's mean of V over the
+    sequence."""
     m = cfg.mla
     q_nope, q_rope = _project_q(params, cfg, x, positions, mesh)
     ckv, k_rope = _project_kv_latent(params, cfg, x, positions)
@@ -115,6 +121,12 @@ def mla_forward(params, cfg, x, positions, *, plain: bool = False,
     qk_dim = m.nope_head_dim + m.rope_head_dim
     k_rope_h = _to_heads(k_rope, mesh)[:, :, None, :].expand(
         k_rope.shape[:2] + (H, m.rope_head_dim))
+    if impl == "surrogate":
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        out = q[..., :m.v_head_dim] * (1.0 / math.sqrt(qk_dim)) \
+            + v.mean(dim=1, keepdim=True)
+        out = torch.einsum("bshe,hed->bsd", out, params["wo"])
+        return out, (ckv, k_rope)
     if graph == "train":
         out = gqa_attention(torch.cat([q_nope, q_rope], dim=-1),
                             torch.cat([k_nope, k_rope_h], dim=-1), v, mask,

@@ -48,10 +48,20 @@ reference does. The ssm prefill scans through ``ssd_scan``; the
 ring-cache decode attends with the plain ``gqa_attention`` (mla: the
 absorbed latent products), as the reference computes it outside any
 Pallas kernel.
+
+``prefill`` and ``decode_step`` take a ``mesh`` as the reference's do:
+every family serves over a ('data', 'model') mesh of ranks, each
+holding its blocks of the parameters and of the cache
+(``ShardingRules``; the section "serving over a mesh" below says how
+a rank's heads and its stripe of the ring's slots meet). A config's
+``attention_impl`` "surrogate" (the dry run's stand-in for attention)
+replaces every attention the reference replaces: the training graph's,
+the encoder's and a prefill's; decode attends as ever.
 """
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -60,8 +70,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed import collectives as C
-from repro_torch.distributed.sharding import ShardingRules, local_block, \
-    spec_axes
+from repro_torch.distributed.sharding import P, ShardingRules, \
+    local_block, spec_axes
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_prefill import flash_prefill
 from repro_torch.models import layers as L
@@ -84,18 +94,6 @@ def keeps_f32(parent, key) -> bool:
 
 MOE_AUX_COEF = 0.01
 Z_LOSS_COEF = 1e-4
-
-
-def _not_ported(what: str, item: str = "6") -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue 1 item {item})")
-
-
-def _check_ported(cfg) -> None:
-    """The ring-cache model serves every family and both attentions; the
-    dry run's surrogate attention is not ported."""
-    if cfg.attention_impl != "einsum":
-        raise _not_ported(f"attention_impl={cfg.attention_impl!r}")
 
 
 # ======================================================================
@@ -171,7 +169,6 @@ def init_params(cfg, generator: torch.Generator, device):
     (which must live on ``device``) with the reference's schemes. The
     numbers differ from JAX's for the same seed; tests carry JAX's
     weights across with ``params_from_numpy`` instead."""
-    _check_ported(cfg)
     dtype = getattr(torch, cfg.param_dtype)
     params = {
         "embed": L.embed_init(generator, (cfg.vocab_size, cfg.d_model),
@@ -334,23 +331,38 @@ def _flash(attend, q, k, v, **kw):
                   v.transpose(1, 2).contiguous(), **kw).transpose(1, 2)
 
 
+def _prefill_attend(cfg, attend, q, k, v, *, causal=True, window=None,
+                    mask=None):
+    """A prefill's attention on [B, S, H, D] tensors: the surrogate
+    where the config asks for it (the dry run's), the masked
+    ``gqa_attention`` under ``mask`` (the prefix-LM mask, which the
+    kernel lacks), else ``attend`` (``flash_prefill`` or its plain
+    version) with ``causal`` and ``window``."""
+    if cfg.attention_impl != "einsum":
+        return L.gqa_attention(q, k, v, mask, impl=cfg.attention_impl)
+    if mask is not None:
+        return L.gqa_attention(q, k, v, mask)
+    return _flash(attend, q, k, v, causal=causal, window=window)
+
+
 def encode(cfg, params, frames, *, plain: bool = False,
            graph: str = "serve"):
     """The whisper encoder over stub frame embeddings [B, F, d]: the
     sinusoidal positions added, then non-causal self-attention layers
     through ``flash_prefill`` (``plain``: its plain version; ``graph``
-    "train": ``gqa_attention`` unmasked, as the reference's)."""
+    "train", or the surrogate attention: ``gqa_attention`` unmasked, as
+    the reference's)."""
     enc = params["encoder"]
     B, nf, d = frames.shape
     dt = cfg.activation_dtype()
     x = frames.to(dt) + L.sinusoidal_positions(nf, d, frames.device).to(dt)
     positions = torch.arange(nf, dtype=torch.int32,
                              device=x.device).expand(B, nf)
-    if graph == "train":
+    if graph == "train" or cfg.attention_impl != "einsum":
         mask = torch.ones((B, nf, nf), dtype=torch.bool, device=x.device)
 
         def attend(q, k, v):
-            return L.gqa_attention(q, k, v, mask)
+            return L.gqa_attention(q, k, v, mask, impl=cfg.attention_impl)
     else:
         kernel = ref.flash_prefill_ref if plain else flash_prefill
 
@@ -374,10 +386,12 @@ def _attn_train(cfg, lp, x, positions, mask):
     h = L.rms_norm(x, lp["ln1"], cfg.rms_eps)
     if cfg.mla is not None:
         a, _ = mla_mod.mla_forward(lp["attn"], cfg, h, positions,
-                                   graph="train", mask=mask)
+                                   graph="train", mask=mask,
+                                   impl=cfg.attention_impl)
         return x + a
     q, k, v = L.attn_project_qkv(lp["attn"], cfg, h, positions)
-    return x + L.attn_output(lp["attn"], L.gqa_attention(q, k, v, mask))
+    return x + L.attn_output(lp["attn"], L.gqa_attention(
+        q, k, v, mask, impl=cfg.attention_impl))
 
 
 def forward(cfg, params, tokens, *, frontend_embeds=None, prefix_len=None,
@@ -397,7 +411,6 @@ def forward(cfg, params, tokens, *, frontend_embeds=None, prefix_len=None,
     ``ShardingRules(cfg, mesh)``) give this rank, with ``tokens``,
     ``frontend_embeds``, ``prefix_len`` and ``enc_frames`` this data
     rank's rows: ``_forward_mesh``."""
-    _check_ported(cfg)
     if mesh is not None:
         return _forward_mesh(cfg, params, tokens, mesh,
                              rules or ShardingRules(cfg, mesh), remat,
@@ -445,7 +458,8 @@ def forward(cfg, params, tokens, *, frontend_embeds=None, prefix_len=None,
             vx = torch.einsum("bsd,dhe->bshe", enc_out, lp["xattn"]["wv"])
             h = _cross_attention(
                 lp, cfg, h, kx, vx,
-                lambda q, k, v: L.gqa_attention(q, k, v, xmask))
+                lambda q, k, v: L.gqa_attention(q, k, v, xmask,
+                                                impl=cfg.attention_impl))
         return _mlp_aux(cfg, lp, h)
 
     for lp in params.get("layers_pre", []):
@@ -555,7 +569,21 @@ def _split_check(ok: bool, what: str, mesh) -> None:
                          "ranks")
 
 
-def _attn_mesh(cfg, lp, sp, x, positions, mask, mesh, *, rope=True):
+def _kv_heads(cfg, s, q, k, v, mesh):
+    """The attention's K/V over this rank's query heads: ``k``/``v``
+    themselves where the KV heads split over 'model' as the query heads
+    do (or nothing splits), else cut to the KV heads of this rank's
+    query heads (global head // G)."""
+    if not _sharded(s["wq"], 1) or _sharded(s["wk"], 1):
+        return k, v
+    hl = q.shape[2]
+    kv = (mesh.idx * hl + torch.arange(hl, device=q.device)) \
+        // (cfg.num_heads // cfg.num_kv_heads)
+    return k[:, :, kv], v[:, :, kv]
+
+
+def _attn_mesh(cfg, lp, sp, x, positions, mask, mesh, *, rope=True,
+               attend=None):
     """A layer's attention half with its heads sharded over 'model'
     (else the whole attention on every rank, no collective): the normed
     input enters through ``copy_to_model``, and so does every leaf the
@@ -565,47 +593,56 @@ def _attn_mesh(cfg, lp, sp, x, positions, mask, mesh, *, rope=True):
     ``reduce_from_model``. Replicated KV heads are cut to the ones of
     this rank's query heads (global head // G). mla shards ``w_uq``,
     ``w_uk``, ``w_uv`` and ``wo`` over heads: ``mla_forward(mesh=)``
-    enters its latents. ``rope`` False: the encoder's layers."""
+    enters its latents. ``rope`` False: the encoder's layers.
+    ``attend(q, k, v)`` (default: ``gqa_attention`` under ``mask``, or
+    its surrogate) attends over this rank's heads: the serving
+    encoder's ``flash_prefill``."""
     a, s = lp["attn"], sp["attn"]
+    impl = cfg.attention_impl
+    if attend is None:
+        def attend(q, k, v):
+            return L.gqa_attention(q, k, v, mask, impl=impl)
     h = L.rms_norm(x, lp["ln1"], cfg.rms_eps)
     if cfg.mla is not None:
         if not _sharded(s["w_uq"], 1):
             out, _ = mla_mod.mla_forward(a, cfg, h, positions,
-                                         graph="train", mask=mask)
+                                         graph="train", mask=mask,
+                                         impl=impl)
             return x + out
         out, _ = mla_mod.mla_forward(a, cfg, h, positions, graph="train",
-                                     mask=mask, mesh=mesh)
+                                     mask=mask, mesh=mesh, impl=impl)
         return x + C.reduce_from_model(out, mesh)
     if not _sharded(s["wq"], 1):
         q, k, v = L.attn_project_qkv(a, cfg, h, positions, rope=rope)
-        return x + L.attn_output(a, L.gqa_attention(q, k, v, mask))
+        return x + L.attn_output(a, attend(q, k, v))
     a = _enter(a, s, mesh)
     q, k, v = L.attn_project_qkv(a, cfg, C.copy_to_model(h, mesh),
                                  positions, rope=rope)
-    if not _sharded(s["wk"], 1):
-        hl = q.shape[2]
-        kv = (mesh.idx * hl + torch.arange(hl, device=q.device)) \
-            // (cfg.num_heads // cfg.num_kv_heads)
-        k, v = k[:, :, kv], v[:, :, kv]
-    out = L.attn_output(a, L.gqa_attention(q, k, v, mask))
+    out = L.attn_output(a, attend(q, *_kv_heads(cfg, s, q, k, v, mesh)))
     return x + C.reduce_from_model(out, mesh)
 
 
-def _xattn_mesh(cfg, lp, sp, x, enc_out, xmask, mesh):
+def _enc_kv(lp, enc_out):
+    """A decoder layer's cross-attention K/V over the encoder's output
+    [B, F, d] (this rank's heads over a mesh): [B, F, H, hd] each."""
+    return (torch.einsum("bsd,dhe->bshe", enc_out, lp["xattn"]["wk"]),
+            torch.einsum("bsd,dhe->bshe", enc_out, lp["xattn"]["wv"]))
+
+
+def _xattn_mesh(cfg, lp, sp, x, k, v, mesh, attend):
     """A whisper decoder layer's cross-attention half, its heads (query
-    and KV alike) sharded over 'model' (else whole on every rank):
-    ``enc_out`` has entered through ``copy_to_model`` (the caller's,
-    once for every layer), the normed queries enter here, and the
-    output leaves through ``reduce_from_model``."""
+    and KV alike) sharded over 'model' (else whole on every rank), over
+    the encoder's K/V ``k``/``v`` (``_enc_kv``; in training its output
+    has entered through ``copy_to_model``, the caller's, once for every
+    layer): the normed queries enter here, ``attend(q, k, v)`` attends,
+    and the output leaves through ``reduce_from_model``."""
     a = lp["xattn"]
     sharded = _sharded(sp["xattn"]["wq"], 1)
     g = L.rms_norm(x, lp["ln_x"], cfg.rms_eps)
     if sharded:
         g = C.copy_to_model(g, mesh)
     q = torch.einsum("bsd,dhe->bshe", g, a["wq"])
-    k = torch.einsum("bsd,dhe->bshe", enc_out, a["wk"])
-    v = torch.einsum("bsd,dhe->bshe", enc_out, a["wv"])
-    out = L.attn_output(a, L.gqa_attention(q, k, v, xmask))
+    out = L.attn_output(a, attend(q, k, v))
     return x + (C.reduce_from_model(out, mesh) if sharded else out)
 
 
@@ -645,13 +682,36 @@ def _rglru_mesh(cfg, lp, sp, x, mesh):
     return x + C.reduce_from_model(y, mesh)
 
 
-def _mlp_mesh(cfg, lp, sp, x, mesh, kind):
+def _mlp_mesh(cfg, lp, sp, x, mesh, kind, *, expert_tp: bool = False,
+              rows: tuple = (), serve: bool = False):
     """A layer's MLP half and its aux loss (None for a dense MLP): the
     moe layer's ``moe_ep``, or the MLP tensor-parallel over ``d_ff``
-    where it divides 'model' (else whole on every rank)."""
+    where it divides 'model' (else whole on every rank).
+
+    ``serve`` (serving; ``rows``: the data axes x's rows split over, if
+    any): ``expert_tp`` takes the moe layer's ``moe_tp`` over the whole
+    batch, x gathered over ``rows`` first and this rank's rows kept
+    after; ``moe_ep`` on rows the rules replicate over the data axes
+    (``decode_2d``) takes this data rank's block of them and gathers
+    the outputs back, as the reference's ``shard_map`` cuts its input
+    over the data axes whatever the activations' layout."""
     h = L.rms_norm(x, lp["ln2"], cfg.rms_eps)
+    if "moe" in lp and expert_tp:
+        for a in reversed(rows):
+            h = C.all_gather(h, 0, mesh, a)
+        y, aux = moe_mod.moe_apply(lp["moe"], h, cfg, mesh=mesh,
+                                   expert_tp=True)
+        return x + local_block(y, P(tuple(rows) or None), mesh), aux
     if "moe" in lp:
+        dax = tuple(a for a in mesh.axis_names if a != "model")
+        cut = serve and not rows and mesh.data > 1 \
+            and h.shape[0] % mesh.data == 0
+        if cut:
+            h = local_block(h, P(dax), mesh)
         y, aux = moe_mod.moe_apply(lp["moe"], h, cfg, mesh=mesh)
+        if cut:
+            for a in reversed(dax):
+                y = C.all_gather(y, 0, mesh, a)
         return x + y, aux
     if _sharded(sp["mlp"]["w_up"], -1):
         return x + L.mlp_tp(lp["mlp"], h, kind, mesh), None
@@ -697,9 +757,10 @@ def _logits_mesh(cfg, params, specs, x, mesh):
     return logits
 
 
-def _encode_mesh(cfg, params, specs, frames, mesh):
+def _encode_mesh(cfg, params, specs, frames, mesh, attend=None):
     """``encode``'s training graph over a mesh: the encoder's stacked
-    layers through the meshed attention (no rope, no mask) and MLP."""
+    layers through the meshed attention (no rope, no mask) and MLP
+    (``attend``: ``_attn_mesh``'s, the serving encoder's kernel)."""
     enc, sp = params["encoder"], _unstack_specs(specs["encoder"]["layers"])
     B, nf, d = frames.shape
     dt = cfg.activation_dtype()
@@ -709,7 +770,8 @@ def _encode_mesh(cfg, params, specs, frames, mesh):
     mask = torch.ones((B, nf, nf), dtype=torch.bool, device=x.device)
     for lp in _unstack(enc["layers"]):
         lp = _fsdp(lp, sp, mesh)
-        x = _attn_mesh(cfg, lp, sp, x, positions, mask, mesh, rope=False)
+        x = _attn_mesh(cfg, lp, sp, x, positions, mask, mesh, rope=False,
+                       attend=attend)
         x, _ = _mlp_mesh(cfg, lp, sp, x, mesh, cfg.mlp_kind)
     return L.rms_norm(x, enc["final_norm"], cfg.rms_eps)
 
@@ -762,7 +824,9 @@ def _forward_mesh(cfg, params, tokens, mesh, rules, remat, *,
             return _ssm_mesh(cfg, lp, sp, h, mesh), None
         h = _attn_mesh(cfg, lp, sp, h, positions, mask, mesh)
         if fam == "encdec":
-            h = _xattn_mesh(cfg, lp, sp, h, enc_out, xmask, mesh)
+            h = _xattn_mesh(cfg, lp, sp, h, *_enc_kv(lp, enc_out), mesh,
+                            lambda q, k, v: L.gqa_attention(
+                                q, k, v, xmask, impl=cfg.attention_impl))
         return _mlp_mesh(cfg, lp, sp, h, mesh, kind)
 
     for lp, sq in zip(params.get("layers_pre", []),
@@ -798,7 +862,6 @@ def init_cache(cfg, batch: int, capacity: int, device, *,
     kv_lora] and rope key ``k_rope`` [L, B, W, rope]), the conv caches
     and f32 state of the ssm and rglru layers, and (encdec) the
     cross-attention K/V over ``enc_frames`` encoder frames."""
-    _check_ported(cfg)
     dtype = cfg.activation_dtype()
     cache = {"len": torch.zeros((batch,), dtype=torch.int32, device=device)}
     if cfg.family == "ssm":
@@ -864,7 +927,8 @@ def _decode_mask(cfg, q_pos, kv_pos, window):
 # prefill
 # ======================================================================
 def prefill(cfg, params, tokens, cache, *, seq_lens=None, prefix_len=None,
-            frontend_embeds=None, enc_frames=None, plain: bool = False):
+            frontend_embeds=None, enc_frames=None, plain: bool = False,
+            mesh=None, rules=None, capacity=None):
     """Run the full prompt, fill the cache. Returns (last_logits [B, V],
     cache).
 
@@ -891,10 +955,23 @@ def prefill(cfg, params, tokens, cache, *, seq_lens=None, prefix_len=None,
     ports, so under it the attention layers take the reference's own
     path: the masked ``gqa_attention`` (mla: ``mla_forward``'s training
     graph), over the whole sequence. The hybrid's local attention and
-    the ssm mixer take no prefix, as in the reference."""
+    the ssm mixer take no prefix, as in the reference.
+
+    ``mesh`` (a rank's mesh, ``launch/mesh.py``; ``rules`` default
+    ``ShardingRules(cfg, mesh, mode="prefill")``): ``_prefill_mesh``,
+    on this rank's blocks of ``params`` and ``cache``; ``capacity`` is
+    the ring's as ``init_cache`` was given it (default: the prompt's
+    length)."""
     if (cfg.family == "encdec") != (enc_frames is not None):
         raise ValueError("enc_frames is required for the encdec family, "
                          "and only for it")
+    if mesh is not None:
+        return _prefill_mesh(
+            cfg, params, tokens, cache, mesh,
+            rules or ShardingRules(cfg, mesh, mode="prefill"), capacity,
+            seq_lens=seq_lens, prefix_len=prefix_len,
+            frontend_embeds=frontend_embeds, enc_frames=enc_frames,
+            plain=plain)
     x = _frontend_concat(_embed(cfg, params, tokens), frontend_embeds)
     B, S, _ = x.shape
     dev = x.device
@@ -955,17 +1032,16 @@ def prefill(cfg, params, tokens, cache, *, seq_lens=None, prefix_len=None,
             elif cfg.mla is not None:
                 a, (ckv, kr) = mla_mod.mla_forward(
                     lp["attn"], cfg, h, positions, plain=plain,
-                    graph="serve" if pmask is None else "train", mask=pmask)
+                    graph="serve" if pmask is None else "train", mask=pmask,
+                    impl=cfg.attention_impl)
                 x = x + a
                 write(cache["ckv"][ai], ckv)
                 write(cache["k_rope"][ai], kr)
                 ai += 1
             else:
                 q, k, v = L.attn_project_qkv(lp["attn"], cfg, h, positions)
-                if pmask is None:
-                    a = _flash(attend, q, k, v, causal=True, window=window)
-                else:
-                    a = L.gqa_attention(q, k, v, pmask)
+                a = _prefill_attend(cfg, attend, q, k, v, window=window,
+                                    mask=pmask)
                 x = x + L.attn_output(lp["attn"], a)
                 write(cache["k"][ai], k)
                 write(cache["v"][ai], v)
@@ -977,7 +1053,8 @@ def prefill(cfg, params, tokens, cache, *, seq_lens=None, prefix_len=None,
                                   lp["xattn"]["wv"])
                 x = _cross_attention(
                     lp, cfg, x, kx, vx,
-                    lambda q, k, v: _flash(attend, q, k, v, causal=False))
+                    lambda q, k, v: _prefill_attend(cfg, attend, q, k, v,
+                                                    causal=False))
                 cache["cross_k"][i] = kx
                 cache["cross_v"][i] = vx
             x = _mlp_block(cfg, lp, x, mlp_valid)
@@ -998,11 +1075,21 @@ def prefill(cfg, params, tokens, cache, *, seq_lens=None, prefix_len=None,
 # ======================================================================
 # decode
 # ======================================================================
-def decode_step(cfg, params, tokens, cache, valid=None):
+def decode_step(cfg, params, tokens, cache, valid=None, *, mesh=None,
+                rules=None, capacity=None):
     """tokens [B] -> (logits [B, V], cache). One AR step per sequence;
     the cache is written in place. ``valid`` [B] bool marks the rows
     whose tokens the moe layers route (None: all); the others still
-    step."""
+    step. ``mesh``: ``_decode_mesh`` (``rules`` default
+    ``ShardingRules(cfg, mesh, mode="decode")``; ``capacity`` the
+    ring's, required where there is a ring)."""
+    if mesh is not None:
+        if valid is not None:
+            raise ValueError("over a mesh the moe layers route every row "
+                             "(the reference's): no valid mask")
+        return _decode_mesh(cfg, params, tokens, cache, mesh,
+                            rules or ShardingRules(cfg, mesh, mode="decode"),
+                            capacity)
     B = tokens.shape[0]
     x = _embed(cfg, params, tokens[:, None])
     q_pos = cache["len"][:, None]                       # [B, 1]
@@ -1069,3 +1156,423 @@ def decode_step(cfg, params, tokens, cache, valid=None):
             x = _mlp_block(cfg, lp, x, valid)
     cache["len"] += 1
     return _logits(cfg, params, x)[:, 0], cache
+
+
+# ======================================================================
+# serving over a mesh
+# ======================================================================
+# Each rank holds the blocks of the parameters that ``rules.params``
+# gives it and the block of the cache that ``rules.cache`` lays out: its
+# rows of the batch where they split over the data axes, its heads (or
+# channels) of the ssm state, the conv caches, the RG-LRU state and the
+# cross-attention K/V, and its stripe of the ring's slots for every KV
+# head (the ring splits over the sequence: over 'model', or in
+# ``decode_2d`` over every data axis then 'model'). The attention runs
+# over this rank's heads, so a rank's heads and its slots differ:
+#
+# - prefill writes each rank's stripe of positions for every KV head:
+#   where the KV heads split over 'model', an all-to-all over 'model'
+#   hands each rank its stripe of every rank's heads (an all-gather
+#   where the ring does not split); the latents of mla are whole on
+#   every rank;
+# - decode gathers the [b, 1, Hq, D] query (mla: the absorbed query and
+#   its rope part) over 'model'; each rank attends its stripe of slots
+#   for every head, the softmax's max taken over the stripe's axes
+#   (all-reduce MAX), then its sum and the probability-weighted values
+#   (all-reduce SUM: a rank whose stripe holds no valid slot adds
+#   zeros), and it keeps its own heads for ``wo``, whose partial
+#   outputs sum over 'model'.
+#
+# The rest is training's meshed blocks: the embedding and logits over
+# the vocabulary, the MLP over ``d_ff``, ``moe_ep`` (``moe_tp`` under
+# ``rules.expert_tp``), the mamba2 and RG-LRU channels, FSDP leaves
+# gathered over 'data' at the layer that uses them (the expert leaves
+# of ``expert_tp`` stay split: ``moe_tp`` sums their products).
+class _Ring:
+    """This rank's stripe of a ring of ``W`` slots, the one slot -> rank
+    map prefill and decode share: slots [lo, lo + w), the stripe's
+    index row-major over ``axes`` (the ring's sequence spec)."""
+
+    def __init__(self, W: int, spec_entry, mesh):
+        self.W = W
+        self.axes = () if spec_entry is None else (
+            spec_entry if isinstance(spec_entry, tuple) else (spec_entry,))
+        n, i = 1, 0
+        for a in self.axes:
+            n, i = n * mesh.shape[a], i * mesh.shape[a] + mesh.coord(a)
+        self.n, self.w = n, W // n
+        # the axes the softmax merges over (an axis of one rank adds
+        # nothing: one stripe is the reference's softmax itself)
+        self.merge = tuple(a for a in self.axes if mesh.shape[a] > 1)
+        self.lo = i * self.w
+        # the stripes of this rank's 'model' group: [outer * M, ...)
+        self.group_lo = (i // mesh.model) * mesh.model * self.w \
+            if "model" in self.axes else self.lo
+
+    def prefill_positions(self, S: int, seq_lens, first: int, count: int):
+        """(p [count], ok [b, count]): for slots [first, first + count),
+        the position whose K/V prefill writes there (the last of the
+        last W positions congruent to the slot mod W) and whether it is
+        a valid one of each row."""
+        dev = seq_lens.device
+        j = torch.arange(first, first + count, device=dev)
+        p = (S - self.W) + torch.remainder(j - (S - self.W), self.W)
+        ok = (p >= 0)[None, :] & (p[None, :] < seq_lens[:, None])
+        return p.clamp(min=0), ok
+
+    def decode_slot(self, q_pos):
+        """(local slot [b, 1] clamped into the stripe, inside [b, 1]): the
+        slot of ``q_pos`` [b, 1] in this stripe, and whether it is in
+        it."""
+        local = torch.remainder(q_pos, self.W).long() - self.lo
+        inside = (local >= 0) & (local < self.w)
+        return local.clamp(0, self.w - 1), inside
+
+
+def _rows_spec(rules, batch: int) -> tuple:
+    """The data axes the batch's rows split over (the cache's batch
+    spec), as a tuple."""
+    e = rules.rows_spec(batch)
+    return () if e is None else (e if isinstance(e, tuple) else (e,))
+
+
+def _rows(t, rows, mesh):
+    """This rank's rows of a global [B, ...] tensor (None stays None)."""
+    if t is None:
+        return None
+    return local_block(t, P(tuple(rows) or None), mesh)
+
+
+def _serve_specs(cfg, params, rules, mesh):
+    """(layers, specs): [(lp, sp, kind)] in execution order, each layer's
+    specs without the stack's [L] entry, and the tree's specs."""
+    specs = rules.params(param_shapes(cfg))
+    if cfg.family == "hybrid":
+        out = list(zip(params["layers"], specs["layers"],
+                       cfg.block_kinds()))
+        return out, specs
+    sp = _unstack_specs(specs["layers"])
+    out = [(lp, sq, "attn") for lp, sq in zip(params.get("layers_pre", []),
+                                               specs.get("layers_pre", []))]
+    out += [(lp, sp, "attn") for lp in _unstack(params["layers"])]
+    if cfg.family == "ssm":
+        out = [(lp, sq, "ssm") for lp, sq, _ in out]
+    return out, specs
+
+
+def _gather_specs(sp, rules):
+    """The specs ``_fsdp`` gathers a layer by: under ``expert_tp`` the
+    moe expert leaves' 'data' split is left to ``moe_tp``."""
+    if not (rules.expert_tp and "moe" in sp):
+        return sp
+    moe = dict(sp["moe"])
+    for k in ("w_gate", "w_up", "w_down"):
+        moe[k] = P(*(None if e == "data" else e for e in moe[k]))
+    return {**sp, "moe": moe}
+
+
+def _stripe_kv(ring, t, p, split_heads: bool, mesh):
+    """This rank's stripe of slots of ``t`` [b, S, H, D] (its K or V,
+    this rank's KV heads where ``split_heads``) for every KV head, each
+    slot from position ``p`` (the group's slots' positions, from
+    ``ring.group_lo``)."""
+    if not split_heads:
+        return t[:, p[ring.lo - ring.group_lo:][:ring.w]]
+    if "model" in ring.axes:
+        # [b, M * w, h, D] of the group's stripes: block m to rank m,
+        # every rank's heads laid side by side
+        return C.all_to_all(t[:, p], 1, 2, mesh, "model")
+    return C.all_gather(t[:, p], 2, mesh, "model")
+
+
+def _write_stripe(buf, new, ok, fresh: bool):
+    """buf [b, w, ...] <- new where ``ok`` [b, w]; elsewhere zeros on a
+    fresh full-capacity ring (W == S: the reference's select) or what
+    ``buf`` held (its dropping scatter)."""
+    keep = ok.reshape(ok.shape + (1,) * (new.dim() - 2))
+    other = torch.zeros((), dtype=buf.dtype, device=buf.device) \
+        if fresh else buf
+    buf.copy_(torch.where(keep, new.to(buf.dtype), other))
+
+
+def _prefill_mesh(cfg, params, tokens, cache, mesh, rules, capacity, *,
+                  seq_lens=None, prefix_len=None, frontend_embeds=None,
+                  enc_frames=None, plain=False):
+    """``prefill`` over a mesh. ``tokens`` (and ``seq_lens``,
+    ``prefix_len``, ``frontend_embeds``, ``enc_frames``) are the whole
+    batch, the same on every rank; ``params`` and ``cache`` this rank's
+    blocks. Returns this rank's rows' last logits [b, V] (the whole
+    vocabulary) and the cache, written in place. The attention runs
+    through ``flash_prefill`` on this rank's heads (or the prefix-LM
+    mask's ``gqa_attention``, or the surrogate), the ssm scan through
+    ``ssd_scan``; the moe layers route every token."""
+    B = tokens.shape[0]
+    S = tokens.shape[1] + (0 if frontend_embeds is None
+                           else frontend_embeds.shape[1])
+    rows = _rows_spec(rules, B)
+    layers, specs = _serve_specs(cfg, params, rules, mesh)
+    tokens = _rows(tokens, rows, mesh)
+    x = _embed_mesh(cfg, params, specs, tokens, mesh)
+    x = _frontend_concat(x, _rows(frontend_embeds, rows, mesh))
+    b = x.shape[0]
+    dev = x.device
+    full = seq_lens is None
+    seq_lens = torch.full((b,), S, dtype=torch.int32, device=dev) if full \
+        else _rows(seq_lens, rows, mesh)
+    prefix_len = _rows(prefix_len, rows, mesh)
+    positions = torch.arange(S, dtype=torch.int32, device=dev).expand(b, S)
+    valid = positions < seq_lens[:, None]
+    attend = ref.flash_prefill_ref if plain else flash_prefill
+    mlp = dict(expert_tp=rules.expert_tp, rows=rows, serve=True)
+    fam = cfg.family
+    if fam != "ssm":
+        W = cache_window(cfg, capacity or S)
+        ring = _Ring(W, rules.ring_spec(W), mesh)
+        fresh = ring.W == S
+        n_group = ring.w * (mesh.model if "model" in ring.axes else 1)
+        p_group, _ = ring.prefill_positions(S, seq_lens, ring.group_lo,
+                                            n_group)
+        p_own, ok = ring.prefill_positions(S, seq_lens, ring.lo, ring.w)
+        window = cfg.rglru.local_window if fam == "hybrid" \
+            else cfg.sliding_window
+        pmask = None
+        if prefix_len is not None and fam != "hybrid":
+            pmask = L.attention_mask(
+                positions, positions, causal=True, window=window,
+                prefix_len=prefix_len) & valid[:, None, :]
+    if enc_frames is not None:
+        def enc_attend(q, k, v):
+            return _prefill_attend(cfg, attend, q, k, v, causal=False)
+        enc_out = _encode_mesh(cfg, params, specs,
+                               _rows(enc_frames, rows, mesh), mesh,
+                               attend=enc_attend)
+    ai = ri = 0
+    for i, (lp, sp, kind) in enumerate(layers):
+        lp = _fsdp(lp, _gather_specs(sp, rules), mesh)
+        h = L.rms_norm(x, lp["ln1"], cfg.rms_eps)
+        if kind == "ssm":
+            m, s = lp["mixer"], sp["mixer"]
+            split = _sharded(s["w_x"], 1)
+            if split:
+                _split_check(_sharded(s["w_dt"], 1), "the mamba2 heads", mesh)
+            y, (cxc, cbc, st) = ssm_mod.mamba2_forward(
+                m, cfg, h, plain=plain, mesh=mesh if split else None)
+            x = x + (C.reduce_from_model(y, mesh) if split else y)
+            cache["conv_x"][i] = cxc
+            cache["conv_bc"][i] = cbc
+            cache["ssm_state"][i] = st
+            continue
+        if kind == "rglru":
+            split = _sharded(sp["rec"]["in_rec"], 1)
+            if split:
+                _split_check(_sharded(sp["rec"]["w_a"], 0),
+                             "the RG-LRU gate blocks", mesh)
+            y, (cc, hl) = rg.recurrent_block_forward(lp["rec"], cfg, h)
+            x = x + (C.reduce_from_model(y, mesh) if split else y)
+            cache["rec_conv"][ri] = cc
+            cache["rec_h"][ri] = hl
+            ri += 1
+        elif cfg.mla is not None:
+            a, s = lp["attn"], sp["attn"]
+            split = _sharded(s["w_uq"], 1)
+            out, (ckv, kr) = mla_mod.mla_forward(
+                a, cfg, h, positions, plain=plain,
+                graph="serve" if pmask is None else "train", mask=pmask,
+                mesh=mesh if split else None, impl=cfg.attention_impl)
+            x = x + (C.reduce_from_model(out, mesh) if split else out)
+            _write_stripe(cache["ckv"][ai], ckv[:, p_own], ok, fresh)
+            _write_stripe(cache["k_rope"][ai], kr[:, p_own], ok, fresh)
+            ai += 1
+        else:
+            a, s = lp["attn"], sp["attn"]
+            heads = _sharded(s["wq"], 1)
+            q, k, v = L.attn_project_qkv(a, cfg, h, positions)
+            ka, va = _kv_heads(cfg, s, q, k, v, mesh)
+            o = _prefill_attend(cfg, attend, q, ka, va, window=window,
+                                mask=pmask)
+            out = L.attn_output(a, o)
+            x = x + (C.reduce_from_model(out, mesh) if heads else out)
+            kv_split = heads and _sharded(s["wk"], 1)
+            for name, t in (("k", k), ("v", v)):
+                _write_stripe(cache[name][ai],
+                              _stripe_kv(ring, t, p_group, kv_split, mesh),
+                              ok, fresh)
+            ai += 1
+        if "xattn" in lp:
+            kx, vx = _enc_kv(lp, enc_out)
+            x = _xattn_mesh(cfg, lp, sp, x, kx, vx, mesh,
+                            lambda q, k, v: _prefill_attend(
+                                cfg, attend, q, k, v, causal=False))
+            cache["cross_k"][i] = kx
+            cache["cross_v"][i] = vx
+        x, _ = _mlp_mesh(cfg, lp, sp, x, mesh, cfg.mlp_kind, **mlp)
+    if fam != "ssm":
+        cache["kv_pos"].copy_(torch.where(ok, p_own[None, :].to(
+            torch.int32), -1))
+    cache["len"].copy_(seq_lens)
+    last = (seq_lens.long() - 1).clamp(min=0)
+    xl = x[torch.arange(b, device=dev), last]
+    return _logits_mesh(cfg, params, specs, xl[:, None], mesh)[:, 0], cache
+
+
+def _stripe_probs(logits, axes, mesh):
+    """The softmax over every stripe's keys of ``logits`` f32 [..., w]
+    (masked: ``NEG_INF``), this stripe's part: the max over the stripes
+    first, then the sum of the exponentials."""
+    if not axes:
+        return torch.softmax(logits, dim=-1)
+    m = logits.amax(dim=-1, keepdim=True)
+    for a in axes:
+        C.all_reduce(m, mesh, a, op=torch.distributed.ReduceOp.MAX)
+    p = torch.exp(logits - m)
+    den = p.sum(dim=-1, keepdim=True)
+    for a in axes:
+        C.all_reduce(den, mesh, a)
+    return p / den
+
+
+def _stripe_product(eq, probs, vals, axes, mesh):
+    """``einsum(eq, probs, vals)`` summed over the stripes: the
+    probabilities cast to the values' type, as the reference's product
+    takes them, the stripes' partial products summed in f32 and cast
+    once (one stripe: the reference's product itself)."""
+    pv = probs.to(vals.dtype)
+    if not axes:
+        return torch.einsum(eq, pv, vals)
+    out = torch.einsum(eq, pv.float(), vals.float())
+    for a in axes:
+        C.all_reduce(out, mesh, a)
+    return out.to(vals.dtype)
+
+
+def _decode_mesh(cfg, params, tokens, cache, mesh, rules, capacity):
+    """``decode_step`` over a mesh: ``tokens`` [B] the whole batch, the
+    same on every rank; ``params`` and ``cache`` this rank's blocks.
+    Returns this rank's rows' logits [b, V] (the whole vocabulary) and
+    the cache, written in place."""
+    B = tokens.shape[0]
+    fam = cfg.family
+    if fam != "ssm" and capacity is None:
+        raise ValueError("decode over a mesh needs the ring's capacity")
+    rows = _rows_spec(rules, B)
+    layers, specs = _serve_specs(cfg, params, rules, mesh)
+    x = _embed_mesh(cfg, params, specs, _rows(tokens, rows, mesh)[:, None],
+                    mesh)
+    b = x.shape[0]
+    q_pos = cache["len"][:, None]                       # [b, 1]
+    mlp = dict(expert_tp=rules.expert_tp, rows=rows, serve=True)
+    if fam != "ssm":
+        W = cache_window(cfg, capacity)
+        ring = _Ring(W, rules.ring_spec(W), mesh)
+        ls, inside = ring.decode_slot(q_pos)
+        brow = torch.arange(b, device=x.device)[:, None]
+
+        def put(buf, new):
+            """buf [b, w, ...] at this row's slot, where it is in the
+            stripe."""
+            keep = inside.reshape(inside.shape + (1,) * (new.dim() - 2))
+            buf[brow, ls] = torch.where(keep, new.to(buf.dtype),
+                                        buf[brow, ls])
+        put(cache["kv_pos"], q_pos)
+        window = cfg.rglru.local_window if fam == "hybrid" \
+            else cfg.sliding_window
+        mask = _decode_mask(cfg, q_pos, cache["kv_pos"], window)
+        if fam == "encdec":
+            xmask = torch.ones((b, 1, cache["cross_k"].shape[2]),
+                               dtype=torch.bool, device=x.device)
+    ai = ri = 0
+    for i, (lp, sp, kind) in enumerate(layers):
+        lp = _fsdp(lp, _gather_specs(sp, rules), mesh)
+        h = L.rms_norm(x, lp["ln1"], cfg.rms_eps)
+        if kind == "ssm":
+            split = _sharded(sp["mixer"]["w_x"], 1)
+            y, (cxc, cbc, st) = ssm_mod.mamba2_decode(
+                lp["mixer"], cfg, h, (cache["conv_x"][i],
+                                      cache["conv_bc"][i]),
+                cache["ssm_state"][i], mesh=mesh if split else None)
+            x = x + (C.reduce_from_model(y, mesh) if split else y)
+            cache["conv_x"][i] = cxc
+            cache["conv_bc"][i] = cbc
+            cache["ssm_state"][i] = st
+            continue
+        if kind == "rglru":
+            split = _sharded(sp["rec"]["in_rec"], 1)
+            y, (cc, hh) = rg.recurrent_block_decode(
+                lp["rec"], cfg, h, cache["rec_conv"][ri], cache["rec_h"][ri])
+            x = x + (C.reduce_from_model(y, mesh) if split else y)
+            cache["rec_conv"][ri] = cc
+            cache["rec_h"][ri] = hh
+            ri += 1
+        elif cfg.mla is not None:
+            x = x + _mla_decode_mesh(cfg, lp["attn"], sp["attn"], h, q_pos,
+                                     cache["ckv"][ai], cache["k_rope"][ai],
+                                     mask, ring, put, mesh)
+            ai += 1
+        else:
+            a, s = lp["attn"], sp["attn"]
+            heads = _sharded(s["wq"], 1)
+            q, k, v = L.attn_project_qkv(a, cfg, h, q_pos)
+            if heads and _sharded(s["wk"], 1):
+                k = C.all_gather(k, 2, mesh, "model")
+                v = C.all_gather(v, 2, mesh, "model")
+            kc, vc = cache["k"][ai], cache["v"][ai]
+            put(kc, k)
+            put(vc, v)
+            qa = C.all_gather(q, 2, mesh, "model") if heads else q
+            Bq, Sq, Hq, D = qa.shape
+            G = Hq // kc.shape[2]
+            logits = torch.einsum(
+                "bqhgd,bkhd->bhgqk",
+                qa.reshape(Bq, Sq, kc.shape[2], G, D).float(),
+                kc.float()) / math.sqrt(D)
+            logits = logits.masked_fill(~mask[:, None, None], L.NEG_INF)
+            o = _stripe_product("bhgqk,bkhd->bqhgd",
+                                _stripe_probs(logits, ring.merge, mesh), vc,
+                                ring.merge, mesh).reshape(Bq, Sq, Hq, -1)
+            if heads:
+                hl = q.shape[2]
+                o = o[:, :, mesh.idx * hl:(mesh.idx + 1) * hl]
+            out = L.attn_output(a, o)
+            x = x + (C.reduce_from_model(out, mesh) if heads else out)
+            ai += 1
+        if "xattn" in lp:
+            x = _xattn_mesh(cfg, lp, sp, x, cache["cross_k"][i],
+                            cache["cross_v"][i], mesh,
+                            lambda q, k, v: L.gqa_attention(q, k, v, xmask))
+        x, _ = _mlp_mesh(cfg, lp, sp, x, mesh, cfg.mlp_kind, **mlp)
+    cache["len"] += 1
+    return _logits_mesh(cfg, params, specs, x, mesh)[:, 0], cache
+
+
+def _mla_decode_mesh(cfg, a, s, h, q_pos, kc, vc, mask, ring, put, mesh):
+    """``mla_decode`` over a mesh, with this token's latents written into
+    this rank's stripe first (``put``): the absorbed query and its rope
+    part made whole over 'model', every head attending this stripe's
+    slots, the latent output summed over the stripes, this rank's heads
+    through ``w_uv`` and ``wo``; the partial output for the caller
+    (summed over 'model' here where the heads split)."""
+    m = cfg.mla
+    ckv, kr = mla_mod._project_kv_latent(a, cfg, h, q_pos)
+    put(kc, ckv)
+    put(vc, kr)
+    heads = _sharded(s["w_uq"], 1)
+    q_nope, q_rope = mla_mod._project_q(a, cfg, h, q_pos)
+    q_abs = torch.einsum("bqhe,rhe->bqhr", q_nope, a["w_uk"])
+    if heads:
+        q_abs = C.all_gather(q_abs, 2, mesh, "model")
+        q_rope = C.all_gather(q_rope, 2, mesh, "model")
+    scale = 1.0 / math.sqrt(m.nope_head_dim + m.rope_head_dim)
+    logits = (torch.einsum("bqhr,bkr->bhqk", q_abs.float(), kc.float())
+              + torch.einsum("bqhe,bke->bhqk", q_rope.float(),
+                             vc.float())) * scale
+    logits = torch.where(mask[:, None, :, :], logits,
+                         torch.tensor(L.NEG_INF, device=logits.device))
+    o_lat = _stripe_product("bhqk,bkr->bqhr",
+                            _stripe_probs(logits, ring.merge, mesh), kc,
+                            ring.merge, mesh)
+    if heads:
+        hl = a["w_uv"].shape[1]
+        o_lat = o_lat[:, :, mesh.idx * hl:(mesh.idx + 1) * hl]
+    out = torch.einsum("bqhr,rhe->bqhe", o_lat, a["w_uv"])
+    out = torch.einsum("bshe,hed->bsd", out, a["wo"])
+    return C.reduce_from_model(out, mesh) if heads else out

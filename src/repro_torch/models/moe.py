@@ -29,9 +29,13 @@ data rank's tokens and holds E / M of the experts; two all-to-alls over
 'model' carry the dispatched tokens to their experts and back, and one
 all-gather restores the rows. Its numbers are the reference's
 ``moe_ep``'s, not ``moe_local``'s on the whole batch: the capacity and
-the aux loss are each slice's. The reference's expert tensor
-parallelism over 'data' (``expert_tp``, the dry run's decode cells) is
-not ported: ``moe_apply`` refuses it.
+the aux loss are each slice's.
+
+``moe_tp`` is the reference's expert tensor parallelism (its
+``moe_ep`` under ``set_expert_tp(True)``, the dry run's decode cells):
+experts over 'model', each expert's ``d_ff`` over 'data', the tokens
+replicated. ``moe_apply`` takes it as an argument (``expert_tp``), not
+as a module global.
 """
 from __future__ import annotations
 
@@ -252,13 +256,71 @@ def moe_ep(params, x, cfg, mesh):
     return y, aux
 
 
+def moe_tp(params, x, cfg, mesh):
+    """x [B, S, d]: the whole batch, the same on every rank -> (y [B, S,
+    d], aux), the same on every rank: the reference's ``moe_ep`` with
+    ``expert_tp`` on. The expert leaves are this rank's E / M experts,
+    each with this 'data' rank's slice of ``d_ff`` where the rules split
+    it (``ShardingRules(expert_tp=True)``: ``w_gate``/``w_up`` ``[E/M,
+    d, f/D]``, ``w_down`` ``[E/M, f/D, d]``), else whole; the router is
+    whole, the shared experts' ``d_ff`` this rank's slice over 'model'
+    where it divides, else whole.
+
+    The B * S tokens are padded with zeros to ``tm * M`` and 'model'
+    rank ``m`` routes slice ``m`` with the capacity of ``tm`` tokens, as
+    in ``moe_ep``; an all-to-all over 'model' gives each rank its
+    experts' slots from every slice, the expert products on this rank's
+    ``d_ff`` slice are summed over 'data' (the contraction the split
+    left open), the all-to-all back returns them, and each slice is
+    combined in the reference's order and gathered over 'model'. The
+    aux loss is the mean of the M slices'. Serving only: it has no
+    backward (training's expert-parallel layer is ``moe_ep``)."""
+    if torch.is_grad_enabled() and (x.requires_grad or any(
+            t.requires_grad for t in params.values()
+            if isinstance(t, torch.Tensor))):
+        raise ValueError("expert_tp is the decode cells' layer and has no "
+                         "backward: training takes moe_ep")
+    m = cfg.moe
+    B, S, d = x.shape
+    M, E = mesh.model, m.num_experts
+    t = B * S
+    tm = -(-t // M)                                  # ceil
+    x2 = x.reshape(t, d)
+    if tm * M > t:
+        x2 = torch.cat([x2, x2.new_zeros((tm * M - t, d))])
+    xs = x2[mesh.idx * tm:(mesh.idx + 1) * tm]
+    weights, sel, aux = route(params["router"], xs, m.top_k)
+    cap = _capacity(tm, m.top_k, E, m.capacity_factor)
+    tok_idx, w_tab, tok_slots = build_dispatch(sel, weights, E, cap,
+                                               slots=True)
+    xe = torch.cat([xs, xs.new_zeros((1, d))])[tok_idx]      # [E, C, d]
+    xe = C.all_to_all(xe, 0, 1, mesh, "model")               # [E/M, C*M, d]
+    ye = expert_ffn(params, xe)
+    if params["w_up"].shape[-1] < m.d_ff_expert:
+        # d_ff split over 'data': finish the contraction
+        ye = C.all_reduce(ye, mesh, "data")
+    ye = C.all_to_all(ye, 1, 0, mesh, "model")               # [E, C, d]
+    y = combine(tok_slots, ye * w_tab[..., None].to(ye.dtype))
+    y = C.all_gather(y, 0, mesh, "model")[:t].reshape(B, S, d)
+    aux = C.all_reduce(aux.clone(), mesh, "model") / M
+    if m.num_shared_experts:
+        f = m.d_ff_expert * m.num_shared_experts
+        sh = params["shared"]
+        y = y + (mlp_tp(sh, x, "swiglu", mesh)
+                 if sh["w_up"].shape[-1] < f else
+                 mlp_apply(sh, x, "swiglu"))
+    return y, aux
+
+
 def moe_apply(params, x, cfg, mesh=None, valid=None, expert_tp=False):
     """``moe_local`` (``valid``: the real tokens), or over a mesh
-    ``moe_ep`` (every token routed, as the reference's)."""
+    ``moe_ep`` (every token routed, as the reference's), or with
+    ``expert_tp`` ``moe_tp`` (x the whole batch; a mesh required)."""
     if expert_tp:
-        raise NotImplementedError(
-            "expert tensor parallelism over 'data' (expert_tp) is not "
-            "ported yet (ROADMAP.md queue 1 item 7c)")
+        if mesh is None:
+            raise ValueError("expert_tp splits the experts over a mesh: "
+                             "pass one")
+        return moe_tp(params, x, cfg, mesh)
     if mesh is not None:
         return moe_ep(params, x, cfg, mesh)
     return moe_local(params, x, cfg, valid)

@@ -164,11 +164,12 @@ def mamba2_forward(params, cfg, u, *, plain: bool = False,
     ``ssd_chunked`` on B and C repeated in f32; the kernel has no
     backward.
 
-    ``mesh`` (the training graph over a mesh): ``params`` are this
-    rank's blocks, ``d_in`` and the heads its part over 'model' (the
-    caller enters ``u`` and the leaves held whole through
-    ``copy_to_model``). Each head scans with its own group's B and C,
-    and the gated norm takes the whole ``d_in``'s mean of squares."""
+    ``mesh`` (the training graph, or a prefill, over a mesh): ``params``
+    are this rank's blocks, ``d_in`` and the heads its part over
+    'model' (the training graph's caller enters ``u`` and the leaves
+    held whole through ``copy_to_model``). Each head scans with its own
+    group's B and C (the kernel takes them per head), and the gated
+    norm takes the whole ``d_in``'s mean of squares."""
     s = cfg.ssm
     b, l, d = u.shape
     d_in = params["w_x"].shape[1]
@@ -189,17 +190,19 @@ def mamba2_forward(params, cfg, u, *, plain: bool = False,
         Cg = F.pad(Cg, (0, 0, 0, 0, 0, pad))
     X = x.float() * dt[..., None]
     dA = dt * A
-    if plain or graph == "train":
-        # head h of the whole d_in reads group h // rep; a rank's heads
-        # are the whole's from h0 on
-        rep = d * s.expand // s.head_dim // s.num_groups
-        h0 = 0 if mesh is None else mesh.idx * nheads
+    # head h of the whole d_in reads group h // rep; a rank's heads are
+    # the whole's from h0 on
+    rep = d * s.expand // s.head_dim // s.num_groups
+    h0 = 0 if mesh is None else mesh.idx * nheads
 
-        def heads(t):
-            return t.repeat_interleave(rep, dim=2)[:, :, h0:h0 + nheads] \
-                .float()
-        Y, ssm_state = ssd_chunked(X, dA, heads(Bg), heads(Cg), chunk)
+    def heads(t):
+        return t.repeat_interleave(rep, dim=2)[:, :, h0:h0 + nheads]
+    if plain or graph == "train":
+        Y, ssm_state = ssd_chunked(X, dA, heads(Bg).float(),
+                                   heads(Cg).float(), chunk)
     else:
+        if mesh is not None:
+            Bg, Cg = heads(Bg), heads(Cg)
         # B = bc[..., :gn] is a strided view: the kernel reads it copied
         Y, ssm_state = ssd_scan(X.contiguous(), dA.contiguous(),
                                 Bg.contiguous(), Cg.contiguous(),
@@ -212,25 +215,31 @@ def mamba2_forward(params, cfg, u, *, plain: bool = False,
     return y @ params["out_proj"], (cxc, cbc, ssm_state)
 
 
-def mamba2_decode(params, cfg, u, conv_caches, ssm_state):
-    """u [b, 1, d] single-token step with recurrent state update."""
+def mamba2_decode(params, cfg, u, conv_caches, ssm_state, mesh=None):
+    """u [b, 1, d] single-token step with recurrent state update.
+    ``mesh``: ``params``, the conv cache of x and the state are this
+    rank's part of ``d_in`` and the heads over 'model' (the norm's mean
+    of squares summed over it), as in ``mamba2_forward``."""
     s = cfg.ssm
     b = u.shape[0]
-    d_in = cfg.d_model * s.expand
+    d_in = params["w_x"].shape[1]
     nheads = d_in // s.head_dim
     cxc, cbc = conv_caches
     z, x, B, C, dt, cxc, cbc = _project(params, cfg, u, cxc, cbc)
     x = x.reshape(b, nheads, s.head_dim).float()
-    rep = nheads // s.num_groups
-    Bh = B.reshape(b, s.num_groups, s.state_dim).repeat_interleave(rep, dim=1)
-    Ch = C.reshape(b, s.num_groups, s.state_dim).repeat_interleave(rep, dim=1)
+    rep = cfg.d_model * s.expand // s.head_dim // s.num_groups
+    h0 = 0 if mesh is None else mesh.idx * nheads
+    Bh = B.reshape(b, s.num_groups, s.state_dim).repeat_interleave(
+        rep, dim=1)[:, h0:h0 + nheads]
+    Ch = C.reshape(b, s.num_groups, s.state_dim).repeat_interleave(
+        rep, dim=1)[:, h0:h0 + nheads]
     dt1 = dt[:, 0]                                               # [b, h]
     A = -torch.exp(params["A_log"])
     ssm_state, y = ssd_decode_step(ssm_state, x * dt1[..., None], dt1 * A,
                                    Bh.float(), Ch.float())
     y = y + params["D"][:, None] * x
     y = y.reshape(b, 1, d_in).to(u.dtype)
-    y = rms_norm(y * F.silu(z), params["norm"], cfg.rms_eps)
+    y = rms_norm(y * F.silu(z), params["norm"], cfg.rms_eps, mesh=mesh)
     return y @ params["out_proj"], (cxc, cbc, ssm_state)
 
 

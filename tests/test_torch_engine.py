@@ -325,18 +325,26 @@ def test_bf16_offload_reload_bit_exact():
 
 @pytest.mark.parametrize("family,item", [("moe", "item 7c")])
 def test_out_of_slice_options_raise(tiny, family, item):
-    """What the family still lacks in the port: the paged engine serves
-    the moe family and training runs its expert-parallel layer over a
-    mesh (``moe_ep``), but the expert tensor parallelism over 'data'
-    (``expert_tp``, the dry run's) is not ported."""
+    """What the family once lacked in the port, the expert tensor
+    parallelism over 'data' (``expert_tp``, the dry run's), is ported:
+    it needs a mesh and raises without one, and on a one-rank
+    placeholder mesh (one model slice, the whole ``d_ff``, no
+    collective) it is ``moe_local`` over every token."""
+    from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.models.moe import moe_apply
     cfg = reduced(get_config("phi3.5-moe-42b-a6.6b"), layers=2,
                   d_model=64, vocab=331)
     assert cfg.family == family
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     lp = tpe.layer_params(params)[0]["moe"]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        moe_apply(lp, torch.zeros((1, 2, 64)), cfg, expert_tp=True)
+    x = torch.randn((2, 3, 64), generator=torch.Generator().manual_seed(1))
+    with pytest.raises(ValueError, match="expert_tp.*mesh"):
+        moe_apply(lp, x, cfg, expert_tp=True)
+    with torch.no_grad():
+        got = moe_apply(lp, x, cfg, mesh=make_debug_mesh(1, 1),
+                        expert_tp=True)
+        want = moe_apply(lp, x, cfg)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def _drive_add_session(make, cfg, seed):
@@ -434,6 +442,9 @@ def test_port_imports_neither_jax_nor_reference():
     assert {"src/repro_torch/distributed/__init__.py",
             "src/repro_torch/distributed/paged.py",
             "src/repro_torch/launch/mesh.py"} <= names
+    # and the dry run
+    assert {"src/repro_torch/launch/specs.py",
+            "src/repro_torch/launch/dryrun.py"} <= names
     # and the replica fleet with its straggler mitigator
     assert {f"src/repro_torch/serving/fleet/{m}.py"
             for m in ("__init__", "replica_set", "router", "migration",

@@ -371,8 +371,9 @@ def test_unserved_families_raise(name, family):
     """mla, the last family the port did not serve, is served: the port's
     init gives the reference's tree, shapes and types, the leading dense
     layer in ``layers_pre`` and MLA's projections in every layer, and
-    the reference's prefill logits on the carried weights. The dry
-    run's surrogate attention still raises."""
+    the reference's prefill logits on the carried weights, and so does
+    the dry run's surrogate attention, once the last option the port
+    refused."""
     cfg = reduced(get_config(name), layers=2, d_model=64, vocab=VOCAB)
     assert family in (cfg.family, "mla" if cfg.mla else None)
     jcfg = j_reduced(j_get_config(name), layers=2, d_model=64, vocab=VOCAB)
@@ -390,9 +391,16 @@ def test_unserved_families_raise(name, family):
                         TM.init_cache(cfg, 2, 16, "cpu"))
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                rtol=LOGIT_TOL, atol=LOGIT_TOL)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        TM.init_params(cfg.replace(attention_impl="surrogate"),
-                       torch.Generator().manual_seed(0), "cpu")
+    scfg = cfg.replace(attention_impl="surrogate")
+    sp = TM.init_params(scfg, torch.Generator().manual_seed(0), "cpu")
+    assert jax.tree.map(lambda t: tuple(t.shape), sp) == \
+        jax.tree.map(lambda t: tuple(t.shape), tp)
+    want, _ = JM.prefill(jcfg.replace(attention_impl="surrogate"), jp,
+                         jnp.asarray(tokens), JM.init_cache(jcfg, 2, 16))
+    got, _ = TM.prefill(scfg, carried, torch.from_numpy(tokens),
+                        TM.init_cache(scfg, 2, 16, "cpu"))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=LOGIT_TOL, atol=LOGIT_TOL)
 
 
 @pytest.mark.parametrize("fid", ["moe-dense1", "vlm"])

@@ -225,12 +225,39 @@ def test_ssd_scan_rejects_groups_that_do_not_divide_heads():
         ssd_scan(X, dA, B, C, chunk=16)
 
 
+class _OnDevice:
+    """A stand-in for a tensor on ``device`` (a device this host has no
+    backend for): the wrappers read its shape and device and must
+    raise before touching anything else."""
+
+    def __init__(self, shape, device):
+        self.shape = torch.Size(shape)
+        self.device = torch.device(device)
+
+    def dim(self):
+        return len(self.shape)
+
+
 def test_new_wrappers_reject_devices_without_a_kernel():
-    q = torch.empty((1, 2, 4, 64), device="meta")
-    with pytest.raises(ValueError, match="no kernel"):
-        flash_prefill(q, q, q)
+    """A device with neither a kernel nor a plain version raises. Meta
+    tensors, the dry run's, take the plain version's arithmetic
+    (``launch/dryrun.py``): its shapes and types come back."""
+    for device in ("mps", "xpu"):
+        q = _OnDevice((1, 2, 4, 64), device)
+        with pytest.raises(ValueError, match="no kernel"):
+            flash_prefill(q, q, q)
+        X = _OnDevice((1, 32, 2, 16), device)
+        dA = _OnDevice((1, 32, 2), device)
+        B = _OnDevice((1, 32, 2, 16), device)
+        with pytest.raises(ValueError, match="no kernel"):
+            ssd_scan(X, dA, B, B, chunk=16)
+    q = torch.empty((1, 2, 4, 64), device="meta", dtype=torch.bfloat16)
+    out = flash_prefill(q, q, q)
+    assert out.device.type == "meta" and out.shape == q.shape \
+        and out.dtype == q.dtype
     X = torch.empty((1, 32, 2, 16), device="meta")
     dA = torch.empty((1, 32, 2), device="meta")
-    B = torch.empty((1, 32, 2, 16), device="meta")
-    with pytest.raises(ValueError, match="no kernel"):
-        ssd_scan(X, dA, B, B, chunk=16)
+    B = torch.empty((1, 32, 1, 16), device="meta", dtype=torch.bfloat16)
+    Y, state = ssd_scan(X, dA, B, B, chunk=16)
+    assert Y.device.type == "meta" and Y.shape == X.shape
+    assert state.shape == (1, 2, 16, 16) and state.dtype == torch.float32

@@ -177,21 +177,23 @@ def test_params_from_numpy_keeps_mixer_f32_leaves(param_dtype):
 # serves; kw2, mla attention (here on a dense stack), is served too and
 # holds the reference's prefill and decode: the cases left keep their
 # ids. The prefix-LM prefill, which raised here, is served too: each case
-# now holds it against the reference's (mla through its training graph)
+# now holds it against the reference's (mla through its training graph).
+# kw0, the dry run's surrogate attention, is served too: its prefill and
+# decode hold the reference's
 @pytest.mark.parametrize("kw", [dict(attention_impl="surrogate"),
                                 dict(mla=MLAConfig(32, 32, 16, 8, 16))],
                          ids=["kw0", "kw2"])
 def test_unported_model_options_raise(kw):
     cfg = reduced(get_config("qwen2-1.5b"), layers=2, d_model=64,
                   vocab=331).replace(**kw)
+    cache = TM.init_cache(cfg, 1, 16, "cpu")
     if cfg.mla is None:
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-            TM.init_cache(cfg, 1, 16, "cpu")
+        assert cache["k"].shape == (2, 1, 16, cfg.num_kv_heads,
+                                    cfg.resolved_head_dim)
     else:
-        cache = TM.init_cache(cfg, 1, 16, "cpu")
         assert cache["ckv"].shape == (2, 1, 16, 32)
         assert cache["k_rope"].shape == (2, 1, 16, 8)
-        _check(_run_both(_pair("qwen2-1.5b", **kw), 9, 32, (9, 5), steps=4))
+    _check(_run_both(_pair("qwen2-1.5b", **kw), 9, 32, (9, 5), steps=4))
     jcfg, jp, tcfg, tp = _pair("qwen2-1.5b",
                                **({} if cfg.mla is None else kw))
     tokens = np.random.default_rng(2).integers(0, 331, size=(2, 9))

@@ -10,7 +10,7 @@ leaf of the parameters (the port's ``param_shapes``, meta tensors, the
 reference's ``launch/specs.py::param_shapes``), of the AdamW and
 Adafactor states built on them, and of the decode caches at two
 sizes, equals JAX's leaf for leaf and path for path; ``needs_fsdp``
-agrees. ``expert_tp`` raises naming its ROADMAP item.
+agrees. ``expert_tp`` without a mesh is refused.
 """
 import functools
 
@@ -134,7 +134,9 @@ def test_local_block_and_full_shape():
 
 # ----------------------------------------------------------- refusals
 def test_moe_apply_refuses_expert_tp():
+    """``expert_tp`` splits the experts over a mesh: without one it is
+    refused (over a mesh, ``tests/test_torch_mesh_serve.py``)."""
     cfg = reduced(get_config("phi3.5-moe-42b-a6.6b"))
-    with pytest.raises(NotImplementedError, match="item 7c"):
+    with pytest.raises(ValueError, match="expert_tp.*mesh"):
         tmoe.moe_apply({}, torch.zeros(1, 2, cfg.d_model), cfg,
                        expert_tp=True)

@@ -372,6 +372,33 @@ def test_launcher_trains_and_resumes_on_cpu(tmp_path, capsys):
     assert out.splitlines()[-1].startswith("step     4 loss")
 
 
+def test_launchers_take_the_first_layers(capsys):
+    """``--layers N``: the training launcher trains and the serving
+    launcher serves the config's first N layers at its width; a count
+    below 1, or past the served config's depth, is refused, and the
+    simulator takes none."""
+    from repro_torch.launch import serve
+    args = dict(arch="qwen2-1.5b", reduced=True, layers=1, steps=2,
+                batch=2, seq=64, microbatches=1, ckpt_dir=None,
+                resume=False, device="cpu")
+    run = launch_train.prepare(args)
+    assert run["cfg"].num_layers == 1 and run["cfg"].d_model == \
+        launch_train.prepare(dict(args, layers=None))["cfg"].d_model
+    assert {t.shape[0] for t in tree_leaves(
+        run["params"]["layers"])} == {1}
+    with pytest.raises(SystemExit):
+        launch_train.main(["--device", "cpu", "--reduced", "--layers", "0"])
+    assert serve.build_config("tiny", 1).num_layers == 1
+    assert serve.build_config("qwen2-1.5b", 4).d_model == 1536
+    serve.main(["--engine", "real", "--device", "cpu", "--config", "tiny",
+                "--layers", "1", "--json"])
+    assert '"generated"' in capsys.readouterr().out
+    for bad in (["--engine", "real", "--config", "tiny", "--layers", "3"],
+                ["--engine", "sim", "--layers", "1"]):
+        with pytest.raises(SystemExit):
+            serve.main(bad)
+
+
 def test_launcher_defaults_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
